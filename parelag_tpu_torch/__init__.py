@@ -1,0 +1,30 @@
+"""parelag_tpu_torch — the PyTorch/CUDA port of parelag_tpu for NVIDIA
+Hopper.
+
+The JAX package (`parelag_tpu`) stays the reference; this package mirrors
+its layout module by module (`amge/structured.py`, `ops/device_sparse.py`,
+`solvers/hierarchy.py`, ...) so each counterpart is easy to find.  Plain
+tensor code is PyTorch; every Pallas kernel of the JAX package on the
+ported path is a CUDA C++ kernel for sm_90a (`csrc/`), built with nvcc at
+first use (`ops/build.py`) and launched through `ops/hopper_kernels.py`.
+
+Importing this package has no side effects: no allocator tuning, no
+mlock, no CUDA initialisation, no kernel build.  It imports neither jax
+nor parelag_tpu (the JAX package's import hooks were never tried in a
+process that holds a CUDA context), so the few numpy host helpers the
+ported path needs are carried here as copies.
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def device():
+    """The current CUDA device, or RuntimeError when there is no card: a
+    measurement never falls back to the CPU.  (CPU tensors need no
+    helper: every kernel wrapper runs its plain version on them.)"""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
+                           "False")
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,87 @@
+"""Carry state built by the JAX package across to the port.
+
+The inputs are JAX objects whose array leaves a caller has already
+turned into numpy (`jax.tree_util.tree_map(np.asarray, H)`); the classes
+are recognised by name and attributes, so this module imports neither
+jax nor parelag_tpu.  bf16 leaves (numpy's ml_dtypes bfloat16) become
+torch.bfloat16.
+"""
+
+import numpy as np
+import torch
+
+from parelag_tpu_torch.amge.structured import StructuredLevel
+from parelag_tpu_torch.ops.device_sparse import (
+    BcsrMatrix, DiaMatrix, EllMatrix, TileCooMatrix)
+from parelag_tpu_torch.solvers.hierarchy import Hierarchy, Level
+from parelag_tpu_torch.solvers.smoothers import L1JacobiSmoother
+
+
+def _tensor(a, device):
+    """numpy (incl. ml_dtypes bfloat16) -> torch tensor on `device`."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _matrix(M, device):
+    if M is None:
+        return None
+    name = type(M).__name__
+    if name == "DiaMatrix":
+        n = M.shape[0]
+        # the JAX table is tile-padded past n; the port keeps width n
+        return DiaMatrix(_tensor(np.asarray(M.data)[:, :n], device),
+                         M.offs, M.shape)
+    if name == "BcsrMatrix":
+        return BcsrMatrix(_tensor(M.col_blocks, device),
+                          _tensor(M.tiles, device), M.shape, M.padded)
+    if name == "TileCooMatrix":
+        return TileCooMatrix(_tensor(M.row_blocks, device),
+                             _tensor(M.col_blocks, device),
+                             _tensor(M.tiles, device), M.shape, M.padded)
+    if name == "EllMatrix":
+        return EllMatrix(_tensor(M.indices, device),
+                         _tensor(M.values, device), M.shape)
+    raise TypeError(f"matrix format {name} is not ported")
+
+
+def _smoother(S, device):
+    if S is None:
+        return None
+    name = type(S).__name__
+    if name == "L1JacobiSmoother":
+        return L1JacobiSmoother(_tensor(S.dinv, device), S.sweeps, S.omega)
+    raise TypeError(f"smoother {name} is not ported")
+
+
+def hierarchy_from_numpy(H, device="cpu") -> Hierarchy:
+    """The port's Hierarchy for a JAX Hierarchy with numpy leaves."""
+    if getattr(H, "perm", None) is not None:
+        raise TypeError("reordered (RCM) hierarchies are not ported")
+    levels = []
+    for lvl in H.levels:
+        pre = _smoother(lvl.pre, device)
+        post = pre if lvl.post is lvl.pre else _smoother(lvl.post, device)
+        ci = lvl.coarse_inv
+        levels.append(Level(
+            A=_matrix(lvl.A, device), P=_matrix(lvl.P, device),
+            R=_matrix(lvl.R, device), pre=pre, post=post,
+            coarse_inv=None if ci is None else _tensor(ci, device)))
+    return Hierarchy(levels, H.mu)
+
+
+def structured_level_from_numpy(lvl, device="cpu") -> StructuredLevel:
+    """The port's StructuredLevel for a JAX StructuredLevel with numpy
+    leaves (fields the port does not carry are refused)."""
+    fields = {k: v for k, v in vars(lvl).items() if k != "shape"}
+    known = set(StructuredLevel.__dataclass_fields__) - {"shape"}
+    extra = set(fields) - known
+    if extra:
+        raise TypeError(f"unknown StructuredLevel fields {sorted(extra)}")
+    return StructuredLevel(
+        shape=tuple(lvl.shape),
+        **{k: None if v is None else _tensor(v, device)
+           for k, v in fields.items()})

@@ -1,0 +1,262 @@
+"""The H1 flagship on the card: structured AMGe setup, bf16 V-cycle
+preconditioned f32 PCG, checked on the host.
+
+Counterpart of bench.py's flagship lane (`_structured_chain`,
+`_build_h1_structured`, `_host_vcycle_pcg`/`_host_vcycle_prepare`,
+`lane_h1`).  The problem is H1 (Poisson + mass) on an nx^3 hex grid of
+[0,1]^3: surface load -1 on z=0, zero Dirichlet on the x and y walls.
+The host pieces (boundary elimination, the Galerkin propagation of the
+elimination term, the f64 scipy anchor) are copies of the JAX bench's
+host code; `eliminate_rowcols` is copied from models/upscaling.py.
+
+    from parelag_tpu_torch import flagship
+    record, _ = flagship.lane_h1(96, "cuda")
+"""
+
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from parelag_tpu_torch.amge import structured as stc
+from parelag_tpu_torch.ops import hopper_kernels
+from parelag_tpu_torch.solvers.autotune import _factory
+from parelag_tpu_torch.solvers.cg import pcg
+from parelag_tpu_torch.solvers.hierarchy import build_hierarchy
+
+#: the flagship cycle: V(2,2) with l1-Jacobi smoothing
+CYCLE = dict(mu=1, smoother="l1jacobi", sweeps=2)
+#: PCG stop (r.z <= RTOL^2 r0.z0, as bench.py's lane) and its cap
+RTOL, MAXITER = 1e-5, 100
+#: timed solves of lane_h1 (the median is reported)
+REPEATS = 3
+
+
+def eliminate_rowcols(A, b, marker, values):
+    """Symmetric elimination of essential dofs (mfem EliminateRowCol
+    semantics, UpscalingGeneralForm.cpp:668-672): zero row+col, keep the
+    diagonal, rhs -= A[:, m] v_m, rhs[m] = diag * v_m."""
+    A = A.tocsr().copy()
+    keep = ~marker
+    idx = np.nonzero(marker)[0]
+    if idx.size == 0:
+        return A, b
+    diag = A.diagonal()
+    v = np.zeros(A.shape[0])
+    v[idx] = values[idx]
+    b = b - A @ v
+    D = sp.diags(keep.astype(float))
+    A = (D @ A @ D).tocsr()
+    A = A + sp.diags(np.where(marker, diag, 0.0))
+    b[idx] = diag[idx] * values[idx]
+    return A.tocsr(), b
+
+
+def n_levels(nx, min_coarse=256):
+    """Levels of the 2x2x2 chain on an nx^3 grid: coarsen while every
+    axis is even and >= 4 and the coarse grid keeps >= min_coarse
+    cells."""
+    nlev, s = 1, (nx, nx, nx)
+    while (all(x % 2 == 0 and x >= 4 for x in s)
+           and np.prod([x // 2 for x in s]) >= min_coarse):
+        s = tuple(x // 2 for x in s)
+        nlev += 1
+    return nlev
+
+
+def structured_chain(nx, min_coarse=256, dtype=np.float32, device="cpu"):
+    """The structured coarsening chain of the flagship grid, on
+    `device` with direct batched solves."""
+    lvl0 = stc.fine_level((nx, nx, nx), dtype=dtype, device=device)
+    return stc.coarsen_chain(lvl0, n_levels(nx, min_coarse))
+
+
+def build_h1_structured(nx, min_coarse=256, dtype=np.float32,
+                        device="cpu"):
+    """Flagship H1 operators via the structured engine: per-level
+    operators assemble from per-cell blocks (fine level: one analytic
+    broadcast block) and the boundary elimination propagates as a
+    Galerkin-corrected sparse term.  Returns (A_levels, P_levels, b) as
+    host scipy CSR / numpy."""
+    shape = (nx, nx, nx)
+    levels, outs = structured_chain(nx, min_coarse, dtype, device)
+
+    nv = (nx + 1) ** 3
+    A0 = stc.assemble_global(
+        stc.h1_uniform_cell_block(shape, dtype=dtype),
+        stc.cell_verts(shape), nv)
+    A_struct = [A0] + [stc.h1_stiffness(lvl).astype(dtype)
+                       for lvl in levels[1:]]
+    P_levels = [stc.materialize_P(out, lvl.shape, 0).tocsr()
+                .astype(dtype)
+                for lvl, out in zip(levels, outs)]
+
+    # grid-index numbering == structured numbering: surface load -1 on
+    # z=0, zero Dirichlet on the x/y walls
+    n = nx + 1
+    iz, iy, ix = np.meshgrid(np.arange(n), np.arange(n), np.arange(n),
+                             indexing="ij")          # C-ravel: x fastest
+    marker = ((ix == 0) | (ix == nx)
+              | (iy == 0) | (iy == nx)).ravel()
+    h2 = (1.0 / nx) ** 2
+    nadj = (np.where((ix == 0) | (ix == nx), 1, 2)
+            * np.where((iy == 0) | (iy == nx), 1, 2))
+    b = np.where(iz == 0, -h2 / 4.0 * nadj, 0.0).ravel().astype(dtype)
+
+    Ae, be = eliminate_rowcols(A0.tocsr(), b, marker,
+                               np.zeros(nv, dtype=dtype))
+    A_levels = [Ae.astype(dtype)]
+    C = (Ae - A0).tocsr()
+    C.eliminate_zeros()
+    for l, P in enumerate(P_levels):
+        C = (P.T @ C @ P).tocsr()
+        A_levels.append((A_struct[l + 1] + C).tocsr())
+    return A_levels, P_levels, be
+
+
+def host_vcycle_prepare(A_levels):
+    dinvs = []
+    for A in A_levels:
+        d = np.asarray(np.abs(A).sum(axis=1)).ravel()
+        dinvs.append(1.0 / np.where(d > 0, d, 1.0))
+    coarse_inv = np.linalg.inv(A_levels[-1].toarray())
+    return dinvs, coarse_inv
+
+
+def host_vcycle_pcg(A_levels, P_levels, b, rtol, maxiter=100, sweeps=2,
+                    prepared=None):
+    """The CPU anchor: the same V(2,2)-cycle preconditioned CG with scipy
+    CSR matvecs and numpy vectors (stops on ||r|| <= rtol ||b||).  Pass
+    prepared=host_vcycle_prepare(A_levels) to keep the smoother and
+    coarse factorization out of a timed region."""
+    if prepared is None:
+        prepared = host_vcycle_prepare(A_levels)
+    dinvs, coarse_inv = prepared
+
+    def smooth(l, bb, x):
+        for _ in range(sweeps):
+            x = x + dinvs[l] * (bb - A_levels[l] @ x)
+        return x
+
+    def cycle(l, bb):
+        if l == len(A_levels) - 1:
+            return coarse_inv @ bb
+        x = smooth(l, bb, np.zeros_like(bb))
+        r = bb - A_levels[l] @ x
+        x = x + P_levels[l] @ cycle(l + 1, P_levels[l].T @ r)
+        return smooth(l, bb, x)
+
+    x = np.zeros_like(b)
+    r = b.copy()
+    z = cycle(0, r)
+    p = z
+    rz = r @ z
+    nrm0 = np.linalg.norm(b)
+    it = 0
+    while it < maxiter:
+        Ap = A_levels[0] @ p
+        alpha = rz / (p @ Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        if np.linalg.norm(r) <= rtol * nrm0:
+            break
+        z = cycle(0, r)
+        rz_new = r @ z
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        it += 1
+    return x, it + 1
+
+
+def build_solver(A_levels, P_levels, device):
+    """The flagship's device hierarchy in f32: DIA operators (<= 48
+    offsets, else BCSR), bf16 transfers, l1-Jacobi V(2,2).  Returns
+    (H, Hb) with Hb = H cast to bf16 (the preconditioner; its coarse
+    inverse stays f32)."""
+    H = build_hierarchy(A_levels, P_levels, _factory(CYCLE, device),
+                        mu=CYCLE["mu"], dtype=np.float32,
+                        matrix_format="dia", transfer_dtype=torch.bfloat16,
+                        device=device)
+    return H, H.cast(torch.bfloat16)
+
+
+def solve(H, Hb, b):
+    """f32 PCG on H's fine operator, preconditioned by one bf16 V-cycle
+    of Hb.  Returns (x, (iterations, r.z))."""
+    def precond(r):
+        return Hb.apply(r.to(torch.bfloat16)).to(torch.float32)
+    return pcg(H.levels[0].A.matvec, b, precond=precond, rtol=RTOL,
+               atol=0.0, maxiter=MAXITER)
+
+
+def lane_h1(nx, device, min_coarse=256):
+    """The flagship record on the card: setup (structured chain + device
+    hierarchy), one warm f32 PCG solve checked in host f64, REPEATS
+    solves timed with CUDA events (median), and the host f64 scipy
+    anchor on the same matrices.  `kernels` holds the hand-kernel
+    launches of the timed solves, read after them.  Returns (record,
+    (A_levels, P_levels, b)); refuses to run without a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError("lane_h1 measures the card and needs a CUDA "
+                           f"device, not {device}")
+    dtype = np.float32
+    hopper_kernels.load()            # build the kernels outside setup_s
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    A_levels, P_levels, b = build_h1_structured(nx, min_coarse, dtype,
+                                                device)
+    H, Hb = build_solver(A_levels, P_levels, device)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    ndofs = A_levels[0].shape[0]
+
+    bt = torch.as_tensor(b.astype(dtype)).to(device)
+    x, (it, _) = solve(H, Hb, bt)
+    niter = int(it)
+    xh = x.double().cpu().numpy()
+    b64 = b.astype(np.float64)
+    rel = float(np.linalg.norm(b64 - A_levels[0].astype(np.float64) @ xh)
+                / np.linalg.norm(b64))
+
+    before = dict(hopper_kernels.LAUNCHES)
+    times, timed_iters = [], []
+    for _ in range(REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, (it_t, _) = solve(H, Hb, bt)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        timed_iters.append(int(it_t))
+    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
+               for k in hopper_kernels.LAUNCHES}
+    solve_s = float(np.median(times))
+
+    out = dict(metric="h1_amge_vcycle_pcg_throughput", ndofs=ndofs,
+               levels=len(H.levels),
+               level_shapes=[int(a.shape[0]) for a in A_levels],
+               formats=[type(l.A).__name__ for l in H.levels],
+               transfers=[type(l.P).__name__ for l in H.levels
+                          if l.P is not None],
+               setup_s=setup_s, iters=niter, converged=niter < MAXITER,
+               timed_iters=timed_iters, rel_res=rel, solve_s=solve_s,
+               solve_s_all=times, dof_iter_per_s=ndofs * niter / solve_s,
+               kernels=kernels)
+    if rel > RTOL:
+        # the f32 solve's floor, reported beside the value
+        out["rel_res_floor"] = rel
+
+    Ah = [a.astype(np.float64) for a in A_levels]
+    Ph = [p.astype(np.float64) for p in P_levels]
+    prepared = host_vcycle_prepare(Ah)
+    t0 = time.perf_counter()
+    _, ith = host_vcycle_pcg(Ah, Ph, b64, rtol=RTOL, maxiter=MAXITER,
+                             prepared=prepared)
+    host_dt = time.perf_counter() - t0
+    out.update(host_iters=ith, host_solve_s=host_dt,
+               host_dof_iter_per_s=ndofs * ith / host_dt)
+    out["vs_baseline"] = out["dof_iter_per_s"] / out["host_dof_iter_per_s"]
+    return out, (A_levels, P_levels, b)

@@ -1,0 +1,109 @@
+"""Build the hand-written CUDA kernels (csrc/*.cu) with nvcc and load them.
+
+The sources compile into one shared library with a plain C interface
+(`extern "C"` launchers), loaded through ctypes — no PyTorch headers, so
+a build takes seconds.  The library lands in `parelag_tpu_torch/_build/`
+(listed in .gitignore) under a name keyed by the hash of the sources and
+flags: a changed source rebuilds, an unchanged one loads the existing
+file.  Nothing builds at import; `load()` builds at first use.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+# sm_90a, not sm_90: the "a" target is the one that admits Hopper's
+# wgmma/setmaxnreg, which later kernels will use
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: result of the last build: {"path", "seconds", "built"}
+BUILD_INFO = {}
+
+
+def nvcc_path():
+    """nvcc from CUDA_HOME / CUDA_PATH, then PATH, then /usr/local/cuda."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.isfile("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "of parelag_tpu_torch build from source")
+
+
+def _sources():
+    names = sorted(f for f in os.listdir(CSRC_DIR)
+                   if f.endswith((".cu", ".cuh")))
+    return [os.path.join(CSRC_DIR, f) for f in names]
+
+
+def _digest(paths):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile csrc/*.cu into _build/ unless the library for these exact
+    sources exists; returns its path.  The compile goes to a temporary
+    file that is renamed into place, so a concurrent loader never sees a
+    half-written library."""
+    srcs = _sources()
+    lib = os.path.join(BUILD_DIR, f"libparelag_hopper_{_digest(srcs)}.so")
+    if os.path.isfile(lib):
+        BUILD_INFO.update(path=lib, seconds=0.0, built=False)
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              cwd=CSRC_DIR)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    BUILD_INFO.update(path=lib, seconds=time.perf_counter() - t0,
+                      built=True)
+    return lib
+
+
+def load():
+    """Build if needed and load the kernel library, with the ctypes
+    signatures of its launchers declared."""
+    lib = ctypes.CDLL(build())
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.dia_spmv_launch.argtypes = [i32, vp, vp, vp, ip, i32, i64, i32,
+                                    i32, vp]
+    lib.dia_spmv_launch.restype = i32
+    lib.dia_jacobi_sweep_launch.argtypes = [i32, vp, vp, vp, vp, vp, ip,
+                                            i32, i64, i32, vp]
+    lib.dia_jacobi_sweep_launch.restype = i32
+    lib.bcsr_spmv_launch.argtypes = [i32, i32, vp, vp, vp, vp, i32, i32,
+                                     i32, i32, vp]
+    lib.bcsr_spmv_launch.restype = i32
+    return lib

@@ -1,0 +1,298 @@
+"""Device sparse-matrix formats (PyTorch).
+
+Counterpart of parelag_tpu/ops/device_sparse.py.  Every format is an
+nn.Module whose tensors are registered buffers, so `Module.to(device)`
+moves it and `Module.to(dtype)` casts its floating values while leaving
+the integer index arrays alone (Hierarchy.cast relies on this).  The
+structure metadata (shape, offsets, padding) are plain attributes.
+
+  DiaMatrix      gather-free shift SpMV; matvec and fused Jacobi sweeps
+                 go through ops/hopper_kernels (CUDA kernels on the card)
+  BcsrMatrix     8 x 128 block-sparse rows; matvec through
+                 hopper_kernels.bcsr_spmv
+  TileCooMatrix  only the nonempty tiles, with a segment-sum over row
+                 blocks (index_add_, plain torch as in JAX)
+  EllMatrix      padded rows (gather + row reduce, plain torch)
+
+The DIA table is kept at its logical width n: the CUDA kernel bounds-
+checks its x reads, so the 8192-row tile padding of the TPU layout is
+not needed.
+"""
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch import nn
+
+from parelag_tpu_torch.ops import hopper_kernels as hk
+
+
+def as_torch_dtype(dtype):
+    """torch dtype of a numpy dtype, a dtype name or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    return {"float64": torch.float64, "float32": torch.float32,
+            "bfloat16": torch.bfloat16}[name]
+
+
+def _tensor(a, dtype=None, device="cpu"):
+    t = torch.as_tensor(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(as_torch_dtype(dtype))
+    return t.to(device)
+
+
+def _promoted(*ts):
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+class EllMatrix(nn.Module):
+    """ELL layout: indices (n, k) int32, values (n, k); padding entries
+    point at column 0 with value 0."""
+
+    def __init__(self, indices, values, shape):
+        super().__init__()
+        self.register_buffer("indices", indices)
+        self.register_buffer("values", values)
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    def matvec(self, x):
+        dt = _promoted(self.values, x)
+        return torch.einsum("nk,nk->n", self.values.to(dt),
+                            x.to(dt)[self.indices])
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+
+def from_scipy(A, dtype=None, device="cpu") -> EllMatrix:
+    """Convert scipy sparse to device ELL."""
+    A = sp.csr_matrix(A)
+    n, m = A.shape
+    dtype = dtype or A.dtype
+    nnz_per_row = np.diff(A.indptr)
+    k = max(int(nnz_per_row.max()) if n else 0, 1)
+    indices = np.zeros((n, k), dtype=np.int32)
+    values = np.zeros((n, k), dtype=np.float64)
+    if A.nnz:
+        rows = np.repeat(np.arange(n), nnz_per_row)
+        within = (np.arange(A.nnz)
+                  - np.repeat(A.indptr[:-1], nnz_per_row))
+        indices[rows, within] = A.indices
+        values[rows, within] = A.data
+    return EllMatrix(_tensor(indices, device=device),
+                     _tensor(values, dtype, device), (n, m))
+
+
+class BcsrMatrix(nn.Module):
+    """Block-sparse rows: per 8-row block a padded list of 128-column
+    block ids (col_blocks (nbr, kb) int32) and dense (8, 128) tiles
+    (tiles (nbr, kb, 8, 128)).  padded = (n_pad, m_pad)."""
+
+    def __init__(self, col_blocks, tiles, shape, padded):
+        super().__init__()
+        self.register_buffer("col_blocks", col_blocks)
+        self.register_buffer("tiles", tiles)
+        self.shape = tuple(shape)
+        self.padded = tuple(padded)
+
+    @property
+    def dtype(self):
+        return self.tiles.dtype
+
+    def matvec(self, x):
+        return hk.bcsr_spmv(self.col_blocks, self.tiles, x, self.shape[0])
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+
+BR, BC = hk.BCSR_BR, hk.BCSR_BC     # tile shape of BCSR and TileCoo
+
+
+def _bcsr_blocks(A):
+    """Shared host structure of to_bcsr/bcsr_stats/to_tilecoo: unique
+    (row block, col block) keys of the nonzeros."""
+    coo = A.tocoo()
+    n, m = A.shape
+    nbc = -(-m // BC)
+    rb = coo.row.astype(np.int64) // BR
+    cb = coo.col.astype(np.int64) // BC
+    key = rb * nbc + cb
+    uk, inv = np.unique(key, return_inverse=True)
+    return coo, nbc, rb, uk, inv
+
+
+def to_bcsr(A, dtype=np.float32, device="cpu") -> BcsrMatrix:
+    """Convert scipy sparse to the BCSR device layout (vectorized)."""
+    A = sp.csr_matrix(A)
+    A.sum_duplicates()
+    n, m = A.shape
+    n_pad = -(-n // BR) * BR
+    m_pad = -(-m // BC) * BC
+    nbr = n_pad // BR
+    coo, nbc, rb, uk, inv = _bcsr_blocks(A)
+    urb = uk // nbc
+    ucb = uk % nbc
+    counts = np.bincount(urb, minlength=nbr)
+    kb = int(max(counts.max() if counts.size else 1, 1))
+    start = np.zeros(nbr + 1, np.int64)
+    np.cumsum(counts, out=start[1:])
+    slot_of_uk = np.arange(uk.size, dtype=np.int64) - start[urb]
+    col_blocks = np.zeros((nbr, kb), dtype=np.int32)
+    col_blocks[urb, slot_of_uk] = ucb
+    tdt = as_torch_dtype(dtype)
+    tiles = torch.zeros(nbr * kb * BR * BC, dtype=tdt)
+    flat = (((rb * kb + slot_of_uk[inv]) * BR
+             + coo.row.astype(np.int64) % BR) * BC
+            + coo.col.astype(np.int64) % BC)
+    tiles[torch.as_tensor(flat)] = torch.as_tensor(coo.data).to(tdt)
+    return BcsrMatrix(_tensor(col_blocks, device=device),
+                      tiles.reshape(nbr, kb, BR, BC).to(device),
+                      (n, m), (n_pad, m_pad))
+
+
+class TileCooMatrix(nn.Module):
+    """COO of nonempty (8, 128) tiles sorted by row block; the matvec is
+    a block gather of x, a multiply-reduce per tile and a segment-sum
+    over row blocks (index_add_, accumulated in f32 or f64)."""
+
+    def __init__(self, row_blocks, col_blocks, tiles, shape, padded):
+        super().__init__()
+        self.register_buffer("row_blocks", row_blocks)
+        self.register_buffer("col_blocks", col_blocks)
+        self.register_buffer("tiles", tiles)
+        self.shape = tuple(shape)
+        self.padded = tuple(padded)
+
+    @property
+    def dtype(self):
+        return self.tiles.dtype
+
+    def matvec(self, x):
+        n, m = self.shape
+        out = _promoted(self.tiles, x)
+        acc = hk.acc_dtype(out)
+        xp = torch.zeros(self.padded[1], dtype=acc, device=x.device)
+        xp[:m] = x.to(acc)
+        g = xp.reshape(-1, BC)[self.col_blocks]               # (t, 128)
+        part = torch.einsum("trc,tc->tr", self.tiles.to(acc), g)
+        y = torch.zeros((self.padded[0] // BR, BR), dtype=acc,
+                        device=x.device)
+        y.index_add_(0, self.row_blocks, part)
+        return y.reshape(-1)[:n].to(out)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+
+def bcsr_stats(A):
+    """Host-side structure stats for format selection without building
+    the tiles: (nbr, kb, ntiles) — BCSR stores nbr*kb tiles padded to the
+    densest row block, TileCoo stores exactly ntiles."""
+    A = sp.csr_matrix(A)
+    n, m = A.shape
+    coo, nbc, rb, uk, inv = _bcsr_blocks(A)
+    nbr = -(-n // BR)
+    counts = np.bincount((uk // nbc).astype(np.int64), minlength=nbr)
+    kb = int(counts.max()) if counts.size else 1
+    return nbr, max(kb, 1), int(uk.size)
+
+
+def to_tilecoo(A, dtype=np.float32, device="cpu") -> TileCooMatrix:
+    """Convert scipy sparse to COO-of-tiles (sorted by row block)."""
+    A = sp.csr_matrix(A)
+    A.sum_duplicates()
+    n, m = A.shape
+    n_pad = -(-n // BR) * BR
+    m_pad = -(-m // BC) * BC
+    coo, nbc, rb, uk, inv = _bcsr_blocks(A)
+    tdt = as_torch_dtype(dtype)
+    tiles = torch.zeros((max(uk.size, 1), BR, BC), dtype=tdt)
+    tiles[torch.as_tensor(inv.astype(np.int64)),
+          torch.as_tensor(coo.row.astype(np.int64) % BR),
+          torch.as_tensor(coo.col.astype(np.int64) % BC)] = \
+        torch.as_tensor(coo.data).to(tdt)
+    urb = (uk // nbc).astype(np.int32) if uk.size else np.zeros(1, np.int32)
+    ucb = (uk % nbc).astype(np.int32) if uk.size else np.zeros(1, np.int32)
+    return TileCooMatrix(_tensor(urb, device=device),
+                         _tensor(ucb, device=device), tiles.to(device),
+                         (n, m), (n_pad, m_pad))
+
+
+class DiaMatrix(nn.Module):
+    """Diagonal (shift) layout: y[i] = sum_d data[d, i] * x[i + offs[d]].
+    data (nd, n) row-aligned coefficients; offs a static tuple of column
+    offsets (col - row)."""
+
+    def __init__(self, data, offs, shape):
+        super().__init__()
+        self.register_buffer("data", data)
+        self.offs = tuple(int(o) for o in offs)
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def matvec(self, x):
+        return hk.dia_spmv(self.data, self.offs, x, self.shape[0])
+
+    def jacobi_sweeps(self, b, x, dinv_omega, sweeps):
+        """`sweeps` fused (weighted-)Jacobi sweeps x <- x + dinv_omega *
+        (b - A x), one kernel launch per sweep.  As in the JAX module, x
+        is cast to b's dtype and the fused path applies only to a square
+        operator and a right-hand side of the table's dtype; otherwise it
+        returns None and the smoother takes its generic path."""
+        n, m = self.shape
+        if not (n == m and b.dtype == self.data.dtype):
+            return None
+        dw = dinv_omega.to(b.dtype)
+        x = x.to(b.dtype)
+        for _ in range(sweeps):
+            x = hk.dia_jacobi_sweep(self.data, self.offs, x, b, dw)
+        return x
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+
+def to_dia(A, dtype=np.float32, device="cpu") -> DiaMatrix:
+    """Convert scipy sparse to the row-aligned diagonal layout."""
+    A = sp.csr_matrix(A)
+    n, m = A.shape
+    coo = A.tocoo()
+    off = coo.col.astype(np.int64) - coo.row
+    offsets = np.unique(off)
+    slot = np.searchsorted(offsets, off)
+    # sum in the target precision where numpy has it, as the JAX to_dia
+    # does (duplicates then round alike); bf16 sums in f64
+    np_dt = (np.float32 if as_torch_dtype(dtype) == torch.float32
+             else np.float64)
+    data = np.zeros((max(offsets.size, 1), n), dtype=np_dt)
+    np.add.at(data, (slot, coo.row), coo.data.astype(np_dt))
+    if offsets.size == 0:
+        offsets = np.zeros(1, dtype=np.int64)
+    return DiaMatrix(_tensor(data, dtype, device),
+                     tuple(int(o) for o in offsets), (n, m))
+
+
+def dia_n_offsets(A) -> int:
+    """Distinct (col - row) offsets — the DIA storage multiplier."""
+    coo = sp.coo_matrix(A)
+    return int(np.unique(coo.col.astype(np.int64) - coo.row).size)
+
+
+def l1_row_weights(A_scipy) -> np.ndarray:
+    """l1-Jacobi weights d_i = sum_j |a_ij| (reference
+    Weightedl1Smoother row weights, ParELAG_MatrixUtils.hpp:40-142)."""
+    A = sp.csr_matrix(A_scipy)
+    return np.asarray(np.abs(A).sum(axis=1)).ravel()

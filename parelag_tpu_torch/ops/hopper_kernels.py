@@ -1,0 +1,230 @@
+"""Hand-written Hopper kernels for the solve-phase hot ops, with their
+plain PyTorch versions.
+
+Counterpart of parelag_tpu/ops/pallas_kernels.py.  Three kernels carry
+the H1 flagship's V-cycle PCG (CUDA C++ for sm_90a in csrc/, built by
+ops/build.py):
+
+  dia_spmv          csrc/dia.cu   replaces dia_spmv_pallas
+  dia_jacobi_sweep  csrc/dia.cu   replaces dia_jacobi_sweep_pallas
+  bcsr_spmv         csrc/bcsr.cu  replaces bcsr_spmv_pallas
+
+Dispatch is by tensor device, never by a try/except: a CPU tensor runs
+the plain version, a CUDA tensor launches the kernel or raises.  Each
+wrapper adds one to LAUNCHES[name] where it launches its kernel and
+nowhere else, so a run can show which kernels it went through.  The
+TPU-only machinery of the JAX module (the lowering probe, retry and
+disable latches, the 1024-aligned x superblock) has no counterpart.
+"""
+
+import ctypes
+
+import torch
+
+LAUNCHES = {"dia_spmv": 0, "dia_jacobi_sweep": 0, "bcsr_spmv": 0}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+DIA_MAX_OFFS = 48            # csrc/dia.cu DIA_MAX_OFFS
+BCSR_BR, BCSR_BC = 8, 128    # csrc/bcsr.cu tile shape
+
+_LIB = None
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def load():
+    """Build (at first use) and load the kernel library."""
+    global _LIB
+    if _LIB is None:
+        from parelag_tpu_torch.ops import build
+        _LIB = build.load()
+    return _LIB
+
+
+def acc_dtype(dtype):
+    """Accumulator type of the kernels: f64 for f64, else f32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _on_cpu(*ts):
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"tensors on mixed or unsupported devices: "
+                         f"{[str(t.device) for t in ts]}")
+    return False
+
+
+def _check(name, cond, what):
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _raise_rc(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+# --------------------------------------------------------------------- #
+# DIA SpMV
+# --------------------------------------------------------------------- #
+
+def dia_spmv_plain(data, offs, x, n):
+    """y[i] = sum_d data[d, i] * x[i + offs[d]] for i < n, x[j] = 0
+    outside [0, m).  The result takes the promoted dtype of data and x
+    and accumulates in f32 (f64 for f64), like the kernel."""
+    m = x.shape[0]
+    out = torch.promote_types(data.dtype, x.dtype)
+    acc = acc_dtype(out)
+    xa = x.to(acc)
+    y = torch.zeros(n, dtype=acc, device=x.device)
+    for d, off in enumerate(offs):
+        lo, hi = max(0, -off), min(n, m - off)
+        if hi > lo:
+            y[lo:hi] += data[d, lo:hi].to(acc) * xa[lo + off:hi + off]
+    return y.to(out)
+
+
+def dia_spmv(data, offs, x, n):
+    """DIA SpMV (csrc/dia.cu on CUDA, dia_spmv_plain on CPU).  data
+    (nd, ld) with ld >= n, row aligned; offs a tuple of nd ints; x (m,).
+    On CUDA: nd <= 48 and x of the table's dtype."""
+    if _on_cpu(data, x):
+        return dia_spmv_plain(data, offs, x, n)
+    name = "dia_spmv"
+    nd, ld = data.shape
+    _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
+    _check(name, data.dtype == x.dtype and data.dtype in DTYPE_CODES,
+           f"dtypes {data.dtype}/{x.dtype} (need equal f32, bf16 or f64)")
+    _check(name, len(offs) == nd and 1 <= nd <= DIA_MAX_OFFS,
+           f"{len(offs)} offsets for a table of {nd} rows (max "
+           f"{DIA_MAX_OFFS})")
+    _check(name, ld >= n, f"table width {ld} < n={n}")
+    _check(name, data.is_contiguous() and x.is_contiguous(),
+           "tensors must be contiguous")
+    lib = load()
+    y = torch.empty(n, dtype=data.dtype, device=x.device)
+    c_offs = (ctypes.c_int * nd)(*[int(o) for o in offs])
+    with torch.cuda.device(x.device):
+        rc = lib.dia_spmv_launch(DTYPE_CODES[data.dtype], _ptr(data),
+                                 _ptr(x), _ptr(y), c_offs, nd, ld, n,
+                                 x.shape[0], _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return y
+
+
+# --------------------------------------------------------------------- #
+# fused DIA Jacobi sweep
+# --------------------------------------------------------------------- #
+
+def dia_jacobi_sweep_plain(data, offs, x, b, dw):
+    """One fused weighted-Jacobi sweep x + dw * (b - A x) of a square DIA
+    operator (dw carries omega * dinv), computed in f32 (f64 for f64)
+    and stored in x's dtype, like the kernel."""
+    n = x.shape[0]
+    acc = acc_dtype(x.dtype)
+    ax = dia_spmv_plain(data, offs, x.to(acc), n).to(acc)
+    return (x.to(acc) + dw.to(acc) * (b.to(acc) - ax)).to(x.dtype)
+
+
+def dia_jacobi_sweep(data, offs, x, b, dw):
+    """Fused DIA Jacobi sweep (csrc/dia.cu on CUDA); x, b, dw (n,) of the
+    table's dtype.  Returns a new x; the input is not overwritten."""
+    if _on_cpu(data, x, b, dw):
+        return dia_jacobi_sweep_plain(data, offs, x, b, dw)
+    name = "dia_jacobi_sweep"
+    nd, ld = data.shape
+    n = x.shape[0]
+    _check(name, x.ndim == 1 and b.shape == x.shape and dw.shape == x.shape,
+           f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
+           f"dw{tuple(dw.shape)}")
+    _check(name, data.dtype in DTYPE_CODES
+           and x.dtype == b.dtype == dw.dtype == data.dtype,
+           f"dtypes {data.dtype}/{x.dtype}/{b.dtype}/{dw.dtype}")
+    _check(name, len(offs) == nd and 1 <= nd <= DIA_MAX_OFFS,
+           f"{len(offs)} offsets for a table of {nd} rows")
+    _check(name, ld >= n, f"table width {ld} < n={n}")
+    _check(name, all(t.is_contiguous() for t in (data, x, b, dw)),
+           "tensors must be contiguous")
+    lib = load()
+    out = torch.empty_like(x)
+    c_offs = (ctypes.c_int * nd)(*[int(o) for o in offs])
+    with torch.cuda.device(x.device):
+        rc = lib.dia_jacobi_sweep_launch(
+            DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(b), _ptr(dw),
+            _ptr(out), c_offs, nd, ld, n, _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# BCSR SpMV
+# --------------------------------------------------------------------- #
+
+# (tiles, x) dtype pairs csrc/bcsr.cu is instantiated for
+_BCSR_PAIRS = {
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float64, torch.float64)}
+
+
+def bcsr_spmv_plain(col_blocks, tiles, x, n):
+    """y = BCSR(col_blocks (nbr, kb), tiles (nbr, kb, 8, 128)) @ x (m,)
+    for the first n rows.  Accumulates in f32 (f64 for f64) and returns
+    the promoted dtype of tiles and x."""
+    bc = tiles.shape[3]
+    out = torch.promote_types(tiles.dtype, x.dtype)
+    acc = acc_dtype(out)
+    m = x.shape[0]
+    xp = torch.zeros(-(-m // bc) * bc, dtype=acc, device=x.device)
+    xp[:m] = x.to(acc)
+    g = xp.reshape(-1, bc)[col_blocks]                     # (nbr, kb, bc)
+    y = torch.einsum("nkrc,nkc->nr", tiles.to(acc), g).reshape(-1)
+    return y[:n].to(out)
+
+
+def bcsr_spmv(col_blocks, tiles, x, n):
+    """BCSR SpMV (csrc/bcsr.cu on CUDA).  On CUDA (tiles, x) is one of
+    bf16/bf16, bf16|f32 x bf16|f32, f64/f64."""
+    if _on_cpu(col_blocks, tiles, x):
+        return bcsr_spmv_plain(col_blocks, tiles, x, n)
+    name = "bcsr_spmv"
+    nbr, kb, br, bc = tiles.shape
+    _check(name, (br, bc) == (BCSR_BR, BCSR_BC),
+           f"tile shape {(br, bc)} (need {(BCSR_BR, BCSR_BC)})")
+    _check(name, col_blocks.shape == (nbr, kb)
+           and col_blocks.dtype == torch.int32,
+           f"col_blocks {tuple(col_blocks.shape)} {col_blocks.dtype}")
+    _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
+    _check(name, (tiles.dtype, x.dtype) in _BCSR_PAIRS,
+           f"dtypes tiles={tiles.dtype} x={x.dtype}")
+    _check(name, n <= nbr * br, f"n={n} > {nbr * br} rows")
+    _check(name, all(t.is_contiguous() for t in (col_blocks, tiles, x)),
+           "tensors must be contiguous")
+    lib = load()
+    y = torch.empty(n, dtype=torch.promote_types(tiles.dtype, x.dtype),
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.bcsr_spmv_launch(
+            DTYPE_CODES[tiles.dtype], DTYPE_CODES[x.dtype],
+            _ptr(col_blocks), _ptr(tiles), _ptr(x), _ptr(y), nbr, kb, n,
+            x.shape[0], _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return y

@@ -1,0 +1,181 @@
+"""Multigrid hierarchy and V/W(mu)-cycle (PyTorch).
+
+Counterpart of parelag_tpu/solvers/hierarchy.py (reference Hierarchy,
+ParELAG_Hierarchy.hpp:28-114, .cpp:109-253): pre-smooth -> residual ->
+restrict -> recurse (mu times) -> interpolate + correct -> post-smooth;
+the coarsest level applies a dense inverse.  Levels are nn.Modules with
+registered buffers, so `Hierarchy.cast(torch.bfloat16)` rides
+`Module.to(dtype)` (floating buffers only) and keeps the coarse inverse
+in full precision.  The RCM `reorder` option of the JAX
+build_hierarchy is not ported.
+"""
+
+import copy
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch import nn
+
+from parelag_tpu_torch.ops.device_sparse import (
+    as_torch_dtype, bcsr_stats, dia_n_offsets, from_scipy, to_bcsr,
+    to_dia, to_tilecoo)
+
+
+class Level(nn.Module):
+    """One level: operator A, transfers P (from the next coarser level)
+    and R = P^T, smoothers pre/post, or the dense coarse_inv at the
+    coarsest level (then P, R, pre and post are None)."""
+
+    def __init__(self, A, P=None, R=None, pre=None, post=None,
+                 coarse_inv=None):
+        super().__init__()
+        self.A, self.P, self.R = A, P, R
+        self.pre, self.post = pre, post
+        self.register_buffer("coarse_inv", coarse_inv)
+
+
+class Hierarchy(nn.Module):
+    def __init__(self, levels, mu=1):
+        super().__init__()
+        self.levels = nn.ModuleList(levels)
+        self.mu = int(mu)            # 1 = V-cycle, 2 = W-cycle
+
+    def cycle(self, b, x=None):
+        if not b.is_floating_point():
+            b = b.to(self.levels[0].A.dtype)
+        if x is None:
+            return _cycle(self.levels, 0, b, torch.zeros_like(b), self.mu,
+                          x_is_zero=True)
+        return _cycle(self.levels, 0, b, x, self.mu)
+
+    def apply(self, b):
+        """One cycle from a zero guess — the preconditioner."""
+        return self.cycle(b)
+
+    def cast(self, dtype):
+        """A copy with every floating buffer cast to `dtype` (e.g.
+        torch.bfloat16: the preconditioner tolerates low precision and
+        the SpMVs are bytes-bound), except the coarse dense inverse,
+        which keeps its precision: it is small and its conditioning
+        matters most.  (Module.to casts in place, hence the copy.)"""
+        new = copy.deepcopy(self).to(as_torch_dtype(dtype))
+        for lvl, old in zip(new.levels, self.levels):
+            if old.coarse_inv is not None:
+                lvl.coarse_inv = old.coarse_inv
+        return new
+
+
+def _cycle(levels, l, b, x, mu, x_is_zero=False):
+    lvl = levels[l]
+    if lvl.coarse_inv is not None:
+        dt = torch.promote_types(lvl.coarse_inv.dtype, b.dtype)
+        return lvl.coarse_inv.to(dt) @ b.to(dt)
+    if x_is_zero and hasattr(lvl.pre, "apply_zero"):
+        x = lvl.pre.apply_zero(lvl.A, b)
+    else:
+        x = lvl.pre.apply(lvl.A, b, x)
+    r = b - lvl.A @ x
+    rc = lvl.R @ r
+    ec = torch.zeros(lvl.R.shape[0], dtype=b.dtype, device=b.device)
+    first = True
+    for _ in range(mu):
+        ec = _cycle(levels, l + 1, rc, ec, mu, x_is_zero=first)
+        first = False
+    x = x + lvl.P @ ec
+    return lvl.post.apply(lvl.A, b, x)
+
+
+def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
+                    mu=1, dtype=np.float64, matrix_format="auto",
+                    transfer_dtype=None, device="cpu") -> Hierarchy:
+    """Assemble a device Hierarchy from host sparse matrices.
+
+    A_scipy_levels: [A_0, ..., A_L]; P_scipy_levels: [P_0, ..., P_{L-1}];
+    smoother_factory(A_scipy, level) -> smoother module.  The transfer
+    format keys on the target device as the JAX build_hierarchy keys on
+    its backend: ELL on the CPU, BCSR/TileCoo/ELL by structure
+    elsewhere."""
+    device = torch.device(device)
+    on_cpu = device.type == "cpu"
+
+    def to_dev_transfer(M):
+        """Device format for P/R: BCSR when its kb-padding stays within
+        4x of the nonempty-tile bytes, TileCoo when padding explodes but
+        the tile count is sane, ELL as the last resort."""
+        M = sp.csr_matrix(M)
+        tdt = transfer_dtype if transfer_dtype is not None else dtype
+        if matrix_format == "ell" or on_cpu:
+            return from_scipy(M, dtype=tdt, device=device)
+        itemsize = torch.empty((), dtype=as_torch_dtype(tdt)).element_size()
+        nbr, kb, ntiles = bcsr_stats(M)
+        bcsr_b = nbr * kb * 1024 * itemsize
+        coo_b = ntiles * 1024 * itemsize
+        cap = 1.5e9
+        if bcsr_b <= min(max(4 * coo_b, 64e6), cap):
+            return to_bcsr(M, dtype=tdt, device=device)
+        if coo_b <= cap:
+            return to_tilecoo(M, dtype=tdt, device=device)
+        return from_scipy(M, dtype=tdt, device=device)
+
+    def to_dev(M):
+        M = sp.csr_matrix(M)
+        fmt = matrix_format
+        if fmt == "auto":
+            fmt = "ell" if on_cpu else "bcsr"
+        if fmt == "dia":
+            # gather-free shift SpMV while the offset count stays small
+            # (the 27-diagonal lexicographic grid); coarse RAP levels that
+            # are not banded fall through to bcsr
+            nd = dia_n_offsets(M)
+            if (nd <= 48 and nd * max(M.shape)
+                    * np.dtype(dtype).itemsize <= (1 << 30)):
+                return to_dia(M, dtype=dtype, device=device)
+            fmt = "bcsr"
+        if fmt == "bcsr":
+            B = to_bcsr(M, dtype=dtype, device=device)
+            size_ok = (B.tiles.numel() * np.dtype(dtype).itemsize
+                       <= (1 << 29)
+                       and B.tiles.numel() <= 128 * max(M.nnz, 1))
+            if size_ok:
+                return B
+        return from_scipy(M, dtype=dtype, device=device)
+
+    n_lev = len(A_scipy_levels)
+    levels = []
+    for l in range(n_lev):
+        A = A_scipy_levels[l]
+        if l == n_lev - 1:
+            if A.shape[0] > 16384:
+                # a dense inverse here is O(n^2) memory / O(n^3) flops:
+                # the coarsening chain stalled or coarse_size is wrong
+                raise RuntimeError(
+                    f"coarsest level has {A.shape[0]} rows — too large "
+                    "for a dense coarse inverse; the coarsening chain "
+                    "stalled or coarse_size is misconfigured")
+            Ainv = np.linalg.inv(A.toarray())
+            levels.append(Level(
+                A=to_dev(A), coarse_inv=torch.as_tensor(
+                    Ainv.astype(dtype)).to(device)))
+        else:
+            P = sp.csr_matrix(P_scipy_levels[l])
+            sm = smoother_factory(A, l).to(device)
+            levels.append(Level(
+                A=to_dev(A), P=to_dev_transfer(P),
+                R=to_dev_transfer(P.T.tocsr()), pre=sm, post=sm))
+    return Hierarchy(levels, mu)
+
+
+def rap(A, P):
+    """Coarse operator P^T A P with the zero-row fix for eliminated BC
+    rows (reference ParELAG_Hierarchy.cpp:366-371 +
+    hypre_ParCSRMatrixFixZeroRows)."""
+    A = sp.csr_matrix(A)
+    P = sp.csr_matrix(P)
+    Ac = (P.T @ A @ P).tocsr()
+    rowsum = np.asarray(np.abs(Ac).sum(axis=1)).ravel()
+    zero = np.where(rowsum < 1e-14)[0]
+    if zero.size:
+        Ac = (Ac + sp.csr_matrix(
+            (np.ones(zero.size), (zero, zero)), shape=Ac.shape)).tocsr()
+    return Ac

@@ -1,0 +1,100 @@
+"""Card-only checks of the hand-written CUDA kernels: each kernel against
+its plain PyTorch version on the card, and the flagship slice end to end
+at a small size.  They skip without a CUDA device.  This file imports
+neither jax nor parelag_tpu, so it runs on the card's machine without
+the repo's JAX conftest:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from parelag_tpu_torch.ops import hopper_kernels as hk
+from parelag_tpu_torch.ops.device_sparse import to_bcsr, to_dia
+
+# max |kernel - plain| / max |plain|: f32/f64 differ in summation order
+# only; bf16 outputs round to 2^-8
+LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rel(yk, yp):
+    assert yk.dtype == yp.dtype and yk.shape == yp.shape
+    d = (yk.double() - yp.double()).abs().max().item()
+    return d / max(yp.double().abs().max().item(), 1e-300)
+
+
+def _stencil(n):
+    """27-point-like banded operator with offsets past both ends."""
+    offs = [o1 + o2 for o1 in (-900, 0, 900) for o2 in (-30, -1, 0, 1, 30)]
+    return sp.diags([np.random.RandomState(len(offs)).rand(n - abs(o))
+                     for o in offs], offs).tocsr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_dia_kernels_match_plain(card, dtype):
+    n = 100_003
+    D = to_dia(_stencil(n), dtype, card)
+    g = torch.Generator().manual_seed(0)
+    x, b, dw = (torch.randn(n, generator=g).to(dtype).to(card)
+                for _ in range(3))
+    before = dict(hk.LAUNCHES)
+    y = hk.dia_spmv(D.data, D.offs, x, n)
+    s = hk.dia_jacobi_sweep(D.data, D.offs, x, b, dw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["dia_spmv"] == before["dia_spmv"] + 1
+    assert hk.LAUNCHES["dia_jacobi_sweep"] == \
+        before["dia_jacobi_sweep"] + 1
+    assert _rel(y, hk.dia_spmv_plain(D.data, D.offs, x, n)) <= LIMIT[dtype]
+    assert _rel(s, hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, dw)) \
+        <= LIMIT[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt,xdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float64, torch.float64)])
+def test_bcsr_kernel_matches_plain(card, tdt, xdt):
+    rng = np.random.RandomState(1)
+    n, m = 20_001, 7_777
+    rows = np.repeat(np.arange(n), 3)
+    cols = (rows * m // n + rng.randint(-300, 300, rows.size)) % m
+    B = to_bcsr(sp.csr_matrix((rng.randn(rows.size), (rows, cols)),
+                              shape=(n, m)), tdt, device=card)
+    x = torch.as_tensor(rng.randn(m)).to(xdt).to(card)
+    y = hk.bcsr_spmv(B.col_blocks, B.tiles, x, n)
+    torch.cuda.synchronize()
+    yp = hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x, n)
+    assert _rel(y, yp) <= LIMIT[y.dtype]
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(card):
+    D = to_dia(_stencil(1000), torch.float32, card)
+    with pytest.raises(ValueError, match="dtypes"):
+        hk.dia_spmv(D.data, D.offs, torch.ones(1000, device=card,
+                                               dtype=torch.bfloat16), 1000)
+    with pytest.raises(ValueError, match="one-dimensional"):
+        hk.dia_spmv(D.data, D.offs, torch.ones(1000, 2, device=card), 1000)
+    with pytest.raises(ValueError, match="offsets"):
+        hk.dia_spmv(D.data[:1], D.offs, torch.ones(1000, device=card), 1000)
+
+
+@pytest.mark.cuda
+def test_flagship_small_on_card(card):
+    from parelag_tpu_torch import flagship as fl
+    rec, _ = fl.lane_h1(16, card, min_coarse=64)
+    assert rec["converged"] and rec["levels"] == 3
+    assert abs(rec["iters"] - rec["host_iters"]) <= 2
+    assert all(v > 0 for v in rec["kernels"].values()), rec["kernels"]

@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: importing any of its modules (and the
+chip smoke script) loads neither jax nor parelag_tpu, and CPU tensors
+never reach the CUDA kernel loader."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from parelag_tpu_torch.ops import build
+from parelag_tpu_torch.ops import hopper_kernels as hk
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import importlib, pkgutil, sys
+import parelag_tpu_torch
+mods = sorted(m.name for m in pkgutil.walk_packages(
+    parelag_tpu_torch.__path__, "parelag_tpu_torch."))
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "parelag_tpu"))
+print(len(mods), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_neither_jax_nor_parelag_tpu():
+    """Every module of the port, imported in a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_mods = int(r.stdout.split()[0])
+    assert n_mods >= 10, r.stdout
+
+
+def test_cpu_tensors_never_reach_the_loader(monkeypatch):
+    """The whole CPU slice runs on the plain versions: no build, no
+    library, every launch counter stays 0."""
+    from parelag_tpu_torch import flagship as fl
+
+    def refuse():
+        raise AssertionError("the kernel library was loaded for CPU "
+                             "tensors")
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(hk, "_LIB", None)
+    before = dict(hk.LAUNCHES)
+    A_levels, P_levels, b = fl.build_h1_structured(8, min_coarse=8)
+    H, Hb = fl.build_solver(A_levels, P_levels, "cpu")
+    x, (it, _) = fl.solve(H, Hb, torch.as_tensor(b.astype(np.float32)))
+    assert it > 0 and torch.isfinite(x).all()
+    D = H.levels[0].A
+    v = torch.ones(D.shape[0])
+    hk.dia_spmv(D.data, D.offs, v, D.shape[0])
+    hk.dia_jacobi_sweep(D.data, D.offs, v, v, v)
+    hk.bcsr_spmv(torch.zeros((1, 1), dtype=torch.int32),
+                 torch.ones((1, 1, 8, 128)), torch.ones(128), 8)
+    assert hk.LAUNCHES == before
+    assert hk._LIB is None
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on CUDA (or a mix) is
+    refused, never run on a plain path."""
+    data = torch.ones((1, 4), device="meta")
+    x = torch.ones(4, device="meta")
+    with pytest.raises(ValueError, match="devices"):
+        hk.dia_spmv(data, (0,), x, 4)
+    with pytest.raises(ValueError, match="devices"):
+        hk.dia_spmv(torch.ones((1, 4)), (0,), x, 4)
+
+
+def test_device_helper_never_falls_back_to_the_cpu():
+    from parelag_tpu_torch import device
+    if torch.cuda.is_available():
+        assert device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            device()
