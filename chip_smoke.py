@@ -1,19 +1,32 @@
 """Smoke run of the PyTorch/H100 port (parelag_tpu_torch) on one card.
 
-    python3 chip_smoke.py       # the 96^3 flagship, 912,673 dofs
+    python3 chip_smoke.py       # the 96^3 flagship (1 and 16 RHS), 24^3
+                                # Maxwell
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
-   parelag_tpu_torch/csrc.
-2. Main path: the H1 flagship, flagship.lane_h1 (structured AMGe setup
-   on the card, bf16 V(2,2)-cycle preconditioned f32 PCG, host f64
-   check and host scipy anchor).  Every launch counter is set to 0 just
-   before and read just after; each of the three kernels must have run.
-   Then the same slice at 16^3 on the card and on the CPU must agree.
+   parelag_tpu_torch/csrc (one nvcc per source, in parallel).
+2. Main paths, each driven with every launch counter set to 0 just
+   before and read just after; each kernel of a path must have run:
+   a. the H1 flagship, flagship.lane_h1(96, n_rhs=16): structured AMGe
+      setup on the card, bf16 V(2,2)-cycle preconditioned f32 PCG
+      checked in host f64 against the host scipy anchor, then block PCG
+      on 16 right-hand sides through the same hierarchy (every column's
+      host f64 residual, column 0 against its 1-RHS solve);
+   b. the Maxwell lane, maxwell_lane.lane_maxwell(24): Hiptmair-smoothed
+      2-level AMGe PCG on a curl-curl + mass H(curl) system, with the
+      f64 restart loop.
+   Then each slice at a small size on the card and on the CPU (plain
+   versions) must agree: the flagship at 16^3, Maxwell at 6^3.
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card at the main path's shapes — the fine DIA operator in f32 and in
-   bf16, one fused Jacobi sweep, and P0/R0 as bf16 BCSR — with the max
-   relative error, its limit and both times (CUDA events, median).
+   card at the main paths' shapes, with the max relative error and its
+   limit, and the times (CUDA events, median) of the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (library_ms: a torch.sparse_csr_tensor product, used nowhere in
+   the port); bound_ms is the least time the card could take for the
+   function, from the bytes and operations this run's data needs (see
+   _compare); format_bytes is what the kernel's own format streams,
+   padding included.
 4. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the result lines; without a card
@@ -24,30 +37,60 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from parelag_tpu_torch import device as pick_device, flagship
+from parelag_tpu_torch import device as pick_device, flagship, maxwell_lane
 from parelag_tpu_torch.ops import build, hopper_kernels as hk
 from parelag_tpu_torch.ops.device_sparse import (
-    l1_row_weights, to_bcsr, to_dia)
+    from_scipy, l1_row_weights, to_bcsr, to_dia)
+from parelag_tpu_torch.solvers.smoothers import aux_operator
 
 # error limits, max |kernel - plain| / max |plain|: f32 outputs differ
 # only in summation order; bf16 outputs round to 2^-8 relative
 REL_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 NX = 96                 # the flagship grid: 96^3 cells, 97^3 dofs
+N_RHS = 16              # right-hand sides of the block solve (bench.py)
+NX_MAXWELL = 24         # bench.py's Maxwell size: 45,000 edge dofs
 ITER_SLACK = 2          # PCG iterations vs the host f64 anchor
 BATCHES, PER_BATCH = 5, 20   # timed batches of back-to-back launches
+# H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
+# FP32 FLOP/s outside the tensor cores (the kernels' f32 FMAs)
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 
+# name -> (source, the TPU kernel it replaces (file:line), main path)
 SOURCES = {
     "dia_spmv": ("parelag_tpu_torch/csrc/dia.cu",
-                 "parelag_tpu/ops/pallas_kernels.py:215"),
+                 "parelag_tpu/ops/pallas_kernels.py:215", "h1"),
     "dia_jacobi_sweep": ("parelag_tpu_torch/csrc/dia.cu",
-                         "parelag_tpu/ops/pallas_kernels.py:266"),
+                         "parelag_tpu/ops/pallas_kernels.py:266", "h1"),
     "bcsr_spmv": ("parelag_tpu_torch/csrc/bcsr.cu",
-                  "parelag_tpu/ops/pallas_kernels.py:119"),
+                  "parelag_tpu/ops/pallas_kernels.py:119", "h1"),
+    "dia_spmv_multirhs": ("parelag_tpu_torch/csrc/dia.cu",
+                          "parelag_tpu/ops/pallas_kernels.py:328", "h1"),
+    "dia_jacobi_sweep_multirhs": ("parelag_tpu_torch/csrc/dia.cu",
+                                  "parelag_tpu/ops/pallas_kernels.py:400",
+                                  "h1"),
+    # no Pallas kernel: the JAX package left the (m, s) BCSR product to
+    # an XLA einsum (BcsrMatrix.matvec)
+    "bcsr_spmv_multirhs": ("parelag_tpu_torch/csrc/bcsr.cu",
+                           "parelag_tpu/ops/device_sparse.py:118", "h1"),
+    "ell_spmv": ("parelag_tpu_torch/csrc/ell.cu",
+                 "parelag_tpu/ops/pallas_kernels.py:43", "maxwell"),
 }
+# the kernel-phase variant each kernel's {"kernels"} entry reports (the
+# first, except where the main path runs the second: the bf16 sweeps of
+# the cycle)
+PRIMARY = {"dia_jacobi_sweep": 1, "dia_jacobi_sweep_multirhs": 1}
+ONE_RHS = ("dia_spmv", "dia_jacobi_sweep", "bcsr_spmv")
+MULTI_RHS = ("dia_spmv_multirhs", "dia_jacobi_sweep_multirhs",
+             "bcsr_spmv_multirhs")
+_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
+JACOBI_NOTE = ("no single PyTorch call computes a fused Jacobi sweep "
+               "x + dw * (b - A x)")
 
 
 def _ms(fn):
@@ -71,7 +114,33 @@ def _ms(fn):
     return float(np.median(ts))
 
 
-def _compare(name, variant, kernel, plain):
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _csr_bytes(M, itemsize):
+    """The least an unstructured SpMV reads of M: its nonzeros' values
+    with int32 CSR column indices and row pointers."""
+    return int(M.count_nonzero()) * (itemsize + 4) + (M.shape[0] + 1) * 4
+
+
+def _csr(M, dtype, dev):
+    """The PyTorch library operand of M: torch.sparse_csr_tensor."""
+    M = sp.csr_matrix(M)
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(M.indptr.astype(np.int64)),
+        torch.as_tensor(M.indices.astype(np.int64)),
+        torch.as_tensor(M.data).to(dtype), M.shape).to(dev)
+
+
+def _compare(name, variant, kernel, plain, nbytes, flops, format_bytes,
+             library=None, library_note=None):
+    """Kernel against its plain version on the same inputs, both timed,
+    with the library call (or the reason there is none) and the bound:
+    max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS).  nbytes is what the
+    function needs, each input read once and each output written once,
+    the matrix counted by its nonzeros (a format's padding is not work);
+    flops is 2 per nonzero per column (plus the sweep's update)."""
     yk = kernel()
     yp = plain()
     torch.cuda.synchronize()
@@ -83,57 +152,162 @@ def _compare(name, variant, kernel, plain):
     ref = yp.double().abs().max().item()
     rel = d / max(ref, 1e-300)
     limit = REL_LIMIT[yk.dtype]
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     row = dict(variant=variant, max_abs_err=d, max_rel_err=rel,
-               limit=limit, ms=_ms(kernel), plain_ms=_ms(plain))
+               limit=limit, ms=_ms(kernel), plain_ms=_ms(plain),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, format_bytes=format_bytes, flops=flops,
+               library_ms=None if library is None else _ms(library))
+    if library is None:
+        row["library_note"] = library_note
+    else:
+        yl = library()
+        torch.cuda.synchronize()
+        row["library_rel_err"] = ((yl.double() - yp.double()).abs().max()
+                                  .item() / max(ref, 1e-300))
+    lib = ("-" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f}")
     print(f"  {name}[{variant}] max_rel_err={rel:.3e} (limit {limit:g}) "
-          f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms")
+          f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+          f"library {lib} ms  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})")
     if not (np.isfinite(rel) and rel <= limit):
         raise SystemExit(f"FAIL {name}[{variant}]: max_rel_err {rel} > "
                          f"{limit}")
     return row
 
 
-def kernel_phase(A0, P0, dev):
-    """Each kernel against its plain version at the main path's shapes,
-    on random vectors from a fixed seed."""
-    rng = np.random.RandomState(0)
-    n = A0.shape[0]
-    rows = {k: [] for k in SOURCES}
-    dw = (1.0 / l1_row_weights(A0)).astype(np.float32)
-    vecs = [torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
-            for _ in range(2)]
-    dwt = torch.as_tensor(dw).to(dev)
+def _dia_rows(rows, A0, dev, rng):
+    """The DIA kernels, 1 and N_RHS columns, f32 and bf16, on the fine
+    flagship operator.  The function needs A0's nonzeros and the
+    offsets (the stencil holds the structure)."""
+    n, nnz = A0.shape[0], int(A0.count_nonzero())
+    dw = torch.as_tensor((1.0 / l1_row_weights(A0)).astype(np.float32))
+    v1 = [torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
+          for _ in range(2)]
+    vs = [torch.as_tensor(rng.randn(n, N_RHS).astype(np.float32)).to(dev)
+          for _ in range(2)]
     for dt in (torch.float32, torch.bfloat16):
         D = to_dia(A0, dt, dev)
-        tag = "f32" if dt == torch.float32 else "bf16"
-        x, b = (v.to(dt) for v in vecs)
-        d = dwt.to(dt)
+        nd, tag = len(D.offs), _TAG[dt]
+        csr = _csr(A0, dt, dev)
+        d = dw.to(dev).to(dt)
+        x, b = (v.to(dt) for v in v1)
+        X, B = (v.to(dt) for v in vs)
+        mat = nnz * x.element_size() + 4 * nd
+        fl1, fls = 2 * nnz, 2 * nnz * N_RHS
         rows["dia_spmv"].append(_compare(
-            "dia_spmv", f"A0 {tag} nd={len(D.offs)} n={n}",
+            "dia_spmv", f"A0 {tag} nd={nd} n={n}",
             lambda: hk.dia_spmv(D.data, D.offs, x, n),
-            lambda: hk.dia_spmv_plain(D.data, D.offs, x, n)))
+            lambda: hk.dia_spmv_plain(D.data, D.offs, x, n),
+            mat + _nbytes(x, x), fl1, _nbytes(D.data, x, x),
+            lambda: csr @ x))
         rows["dia_jacobi_sweep"].append(_compare(
             "dia_jacobi_sweep", f"A0 {tag} one sweep n={n}",
             lambda: hk.dia_jacobi_sweep(D.data, D.offs, x, b, d),
-            lambda: hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, d)))
-        del D
-    for label, M in (("P0", P0), ("R0", P0.T.tocsr())):
-        B = to_bcsr(M, torch.bfloat16, device=dev)
-        xs = torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
+            lambda: hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, d),
+            mat + _nbytes(x, b, d, x), fl1 + 3 * n,
+            _nbytes(D.data, x, b, d, x), library_note=JACOBI_NOTE))
+        rows["dia_spmv_multirhs"].append(_compare(
+            "dia_spmv_multirhs", f"A0 {tag} nd={nd} n={n} s={N_RHS}",
+            lambda: hk.dia_spmv_multirhs(D.data, D.offs, X, n),
+            lambda: hk.dia_spmv_plain(D.data, D.offs, X, n),
+            mat + _nbytes(X, X), fls, _nbytes(D.data, X, X),
+            lambda: csr @ X))
+        rows["dia_jacobi_sweep_multirhs"].append(_compare(
+            "dia_jacobi_sweep_multirhs",
+            f"A0 {tag} one sweep n={n} s={N_RHS}",
+            lambda: hk.dia_jacobi_sweep_multirhs(D.data, D.offs, X, B, d),
+            lambda: hk.dia_jacobi_sweep_plain(D.data, D.offs, X, B, d),
+            mat + _nbytes(X, B, d, X), fls + 3 * n * N_RHS,
+            _nbytes(D.data, X, B, d, X), library_note=JACOBI_NOTE))
+        del D, csr
+
+
+def _bcsr_rows(rows, cases, dev, rng):
+    """bcsr_spmv on each (label, M, tile dtype, x dtypes, multi) case,
+    and bcsr_spmv_multirhs with N_RHS columns where multi is set."""
+    for label, M, tdt, xdts, multi in cases:
+        B = to_bcsr(M, tdt, device=dev)
+        nbr, kb = B.col_blocks.shape
+        n, m = M.shape
+        csr = _csr(M, tdt, dev)
+        nnz = int(M.count_nonzero())
+        mat = _csr_bytes(M, B.tiles.element_size())
+        xs = torch.as_tensor(rng.randn(m).astype(np.float32)).to(dev)
+        Xs = torch.as_tensor(rng.randn(m, N_RHS).astype(np.float32)
                              ).to(dev)
-        pairs = [(torch.bfloat16, "bf16 x")]
-        if label == "P0":
-            pairs.append((torch.float32, "f32 x"))
-        for xdt, xtag in pairs:
-            x = xs.to(xdt)
-            nbr, kb = B.col_blocks.shape
+        for xdt in xdts:
+            x, X = xs.to(xdt), Xs.to(xdt)
+            y_bytes = n * torch.empty((), dtype=torch.promote_types(
+                tdt, xdt)).element_size()
+            tag = (f"{label} {_TAG[tdt]} tiles {_TAG[xdt]} x {n}x{m} "
+                   f"nbr={nbr} kb={kb}")
+            same = xdt == tdt    # the library call takes one dtype
+            note = "torch's CSR product takes one dtype for M and x"
             rows["bcsr_spmv"].append(_compare(
-                "bcsr_spmv", f"{label} bf16 tiles {xtag} {M.shape[0]}x"
-                f"{M.shape[1]} nbr={nbr} kb={kb}",
-                lambda: hk.bcsr_spmv(B.col_blocks, B.tiles, x, M.shape[0]),
-                lambda: hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x,
-                                           M.shape[0])))
-        del B
+                "bcsr_spmv", tag,
+                lambda: hk.bcsr_spmv(B.col_blocks, B.tiles, x, n),
+                lambda: hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x, n),
+                mat + _nbytes(x) + y_bytes, 2 * nnz,
+                _nbytes(B.col_blocks, B.tiles, x) + y_bytes,
+                (lambda: csr @ x) if same else None,
+                None if same else note))
+            if not multi:
+                continue
+            rows["bcsr_spmv_multirhs"].append(_compare(
+                "bcsr_spmv_multirhs", f"{tag} s={N_RHS}",
+                lambda: hk.bcsr_spmv_multirhs(B.col_blocks, B.tiles, X, n),
+                lambda: hk.bcsr_spmv_plain(B.col_blocks, B.tiles, X, n),
+                mat + _nbytes(X) + y_bytes * N_RHS, 2 * nnz * N_RHS,
+                _nbytes(B.col_blocks, B.tiles, X) + y_bytes * N_RHS,
+                (lambda: csr @ X) if same else None,
+                None if same else note))
+        del B, csr
+
+
+def _ell_rows(rows, mats, dev, rng):
+    """The ELL kernel on the Maxwell lane's matrices (f32) and on the
+    flagship's P0 as ELL (long enough to time above launch overhead)."""
+    for label, M in mats:
+        E = from_scipy(M, dtype=np.float32, device=dev)
+        n, k = E.values.shape
+        csr = _csr(M, torch.float32, dev)
+        x = torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
+                            ).to(dev)
+        rows["ell_spmv"].append(_compare(
+            "ell_spmv", f"{label} f32 {n}x{M.shape[1]} k={k}",
+            lambda: hk.ell_spmv(E.indices, E.values, x),
+            lambda: hk.ell_spmv_plain(E.indices, E.values, x),
+            _csr_bytes(M, 4) + _nbytes(x) + n * 4, 2 * int(M.count_nonzero()),
+            _nbytes(E.indices, E.values, x) + n * 4, lambda: csr @ x))
+        del E, csr
+
+
+def kernel_phase(A0, P0, maxwell, dev):
+    """Each kernel against its plain version at the main paths' shapes,
+    on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
+    P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
+    the lane's hierarchy holds them, and Hiptmair's level-0 ELL
+    matrices."""
+    rng = np.random.RandomState(0)
+    rows = {k: [] for k in SOURCES}
+    _dia_rows(rows, A0, dev, rng)
+    A_levels, P_levels, D0 = maxwell
+    bf16, f32 = torch.bfloat16, torch.float32
+    _bcsr_rows(rows, [
+        ("P0", P0, bf16, (bf16, f32), True),
+        ("R0", P0.T.tocsr(), bf16, (bf16,), False),
+        ("Maxwell A0", A_levels[0], f32, (f32,), False),
+        ("Maxwell P0", P_levels[0], f32, (f32,), False),
+        ("Maxwell R0", P_levels[0].T.tocsr(), f32, (f32,), False)],
+        dev, rng)
+    aux = aux_operator(A_levels[0].astype(np.float32),
+                       D0[0].astype(np.float32))
+    _ell_rows(rows, [("Maxwell A_aux", aux),
+                     ("Maxwell D0^T", D0[0].T.tocsr()),
+                     ("flagship P0", P0)], dev, rng)
     return rows
 
 
@@ -160,10 +334,92 @@ def small_check(dev):
         raise SystemExit("FAIL small check: card and CPU disagree")
 
 
+def small_check_maxwell(dev):
+    """The Maxwell slice at 6^3 on the card against the CPU: host
+    operators from the f64 chains within 1e-10, first-solve iterations
+    within one, solutions within 1e-4 of |x| (both refined to a true
+    relative residual of 1e-6 in f32)."""
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        A, b, A_levels, P_levels, D0 = maxwell_lane.build_maxwell(6, d)
+        H = maxwell_lane.build_solver(A_levels, P_levels, D0, d)
+        x, first, niter, rel = maxwell_lane.solve_refined(H, A, b)
+        runs.append((A_levels + P_levels + D0, x, first, rel))
+    (Mc, xc, itc, relc), (Mg, xg, itg, relg) = runs
+    op = max(abs(a - c).max() / abs(c).max() for a, c in zip(Mg, Mc))
+    dx = np.linalg.norm(xg - xc) / np.linalg.norm(xc)
+    print(f"small check Maxwell 6^3: operators max rel diff {op:.3e} "
+          f"(limit 1e-10), first iters card {itg} cpu {itc}, rel_res card "
+          f"{relg:.3e} cpu {relc:.3e}, |dx|/|x| {dx:.3e} (limit 1e-4)")
+    if not (op <= 1e-10 and abs(itg - itc) <= 1 and dx <= 1e-4
+            and max(relg, relc) <= maxwell_lane.RTOL):
+        raise SystemExit("FAIL small check Maxwell: card and CPU disagree")
+
+
+def _path(name, fn):
+    """Drive one main path with every launch counter at 0 just before;
+    returns (its result, the launches read just after)."""
+    hk.reset_launches()
+    out = fn()
+    launches = dict(hk.LAUNCHES)
+    print(f"  launches on the {name} path: {launches}")
+    return out, launches
+
+
+def check_h1(rec, launches):
+    fails = []
+    nv = (NX + 1) ** 3
+    if rec["ndofs"] != nv:
+        fails.append(f"ndofs {rec['ndofs']} != {nv}")
+    if rec["levels"] != flagship.n_levels(NX):
+        fails.append(f"levels {rec['levels']}")
+    if not rec["converged"]:
+        fails.append(f"PCG did not meet the r.z stop in {rec['iters']}")
+    if abs(rec["iters"] - rec["host_iters"]) > ITER_SLACK:
+        fails.append(f"iters {rec['iters']} vs host {rec['host_iters']}")
+    if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] <= 1e-4):
+        # the converged rule of solvers/autotune.tune_cycle: 10 * rtol
+        fails.append(f"rel_res {rec['rel_res']} > 1e-4")
+    mr = rec["multirhs"]
+    if mr["n_rhs"] != N_RHS or not mr["converged"]:
+        fails.append(f"block PCG did not converge in {mr['iters']}")
+    if not (np.isfinite(mr["rel_res_max"]) and mr["rel_res_max"] <= 1e-4):
+        fails.append(f"block PCG column rel_res {mr['rel_res_max']} > 1e-4")
+    if not mr["col0_rel_diff"] <= 1e-3:
+        # both solved to rtol 1e-5 through the bf16 preconditioner
+        fails.append(f"block column 0 vs its 1-RHS solve "
+                     f"{mr['col0_rel_diff']} > 1e-3")
+    for k in ONE_RHS:
+        if launches[k] <= 0 or rec["kernels"][k] <= 0:
+            fails.append(f"kernel {k} never launched on the 1-RHS path")
+    for k in MULTI_RHS:
+        if launches[k] <= 0 or mr["kernels"][k] <= 0:
+            fails.append(f"kernel {k} never launched in the block solves")
+    if fails:
+        raise SystemExit("FAIL h1 path: " + "; ".join(fails))
+
+
+def check_maxwell(rec, launches):
+    fails = []
+    if rec["ndofs"] != 3 * NX_MAXWELL * (NX_MAXWELL + 1) ** 2:
+        fails.append(f"ndofs {rec['ndofs']}")
+    if rec["first_iters"] >= maxwell_lane.MAXITER:
+        fails.append(f"first PCG solve hit maxiter {rec['first_iters']}")
+    rel = rec["rel_res"]
+    if not (np.isfinite(rel) and (rel <= maxwell_lane.RTOL
+                                  or "rel_res_floor" in rec)):
+        fails.append(f"rel_res {rel} above the rtol with no floor")
+    if launches["ell_spmv"] <= 0 or rec["kernels"]["ell_spmv"] <= 0:
+        fails.append("kernel ell_spmv never launched on the Maxwell path")
+    if fails:
+        raise SystemExit("FAIL Maxwell path: " + "; ".join(fails))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
     dev = pick_device()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,11 +435,12 @@ def main():
           f"(nvcc {build.BUILD_INFO['seconds']:.2f} s, built="
           f"{build.BUILD_INFO['built']}) -> {build.BUILD_INFO['path']}")
 
-    # ---- main path ---------------------------------------------------
-    hk.reset_launches()
-    rec, (A_levels, P_levels, _) = flagship.lane_h1(NX, dev)
-    launches = dict(hk.LAUNCHES)
-    print("main path: " + json.dumps(rec))
+    # ---- main paths ----------------------------------------------------
+    print("main path h1 (flagship.lane_h1, 1 and 16 RHS):")
+    (rec, (A_levels, P_levels, _)), l_h1 = _path(
+        "h1", lambda: flagship.lane_h1(NX, dev, n_rhs=N_RHS))
+    mr = rec["multirhs"]
+    print("  record: " + json.dumps(rec))
     print(f"  ndofs={rec['ndofs']} levels={rec['levels']} "
           f"shapes={rec['level_shapes']} formats={rec['formats']} "
           f"transfers={rec['transfers']}")
@@ -196,41 +453,40 @@ def main():
     print(f"  host anchor: iters={rec['host_iters']} "
           f"solve_s={rec['host_solve_s']:.3f} vs_baseline="
           f"{rec['vs_baseline']:.2f}")
-    print(f"  launches in main path: {launches}; in the timed solves: "
-          f"{rec['kernels']}")
+    print(f"  block PCG s={mr['n_rhs']}: iters={mr['iters']} "
+          f"rel_res_max={mr['rel_res_max']:.3e} solve_s={mr['solve_s']:.5f}"
+          f" value={mr['value']:.4e} achieved_tflops="
+          f"{mr['achieved_tflops']:.4f} col0 vs 1-RHS "
+          f"{mr['col0_rel_diff']:.3e} ({mr['col0_iters']} iters)")
+    check_h1(rec, l_h1)
 
-    fails = []
-    nv = (NX + 1) ** 3
-    if rec["ndofs"] != nv:
-        fails.append(f"ndofs {rec['ndofs']} != {nv}")
-    if rec["levels"] != flagship.n_levels(NX):
-        fails.append(f"levels {rec['levels']}")
-    if not rec["converged"]:
-        fails.append(f"PCG did not meet the r.z stop in {rec['iters']}")
-    if abs(rec["iters"] - rec["host_iters"]) > ITER_SLACK:
-        fails.append(f"iters {rec['iters']} vs host {rec['host_iters']}")
-    if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] <= 1e-4):
-        # the converged rule of solvers/autotune.tune_cycle: 10 * rtol
-        fails.append(f"rel_res {rec['rel_res']} > 1e-4")
-    for k in SOURCES:
-        if launches[k] <= 0 or rec["kernels"][k] <= 0:
-            fails.append(f"kernel {k} never launched on the main path")
-    if fails:
-        raise SystemExit("FAIL main path: " + "; ".join(fails))
+    print(f"main path maxwell (maxwell_lane.lane_maxwell({NX_MAXWELL})):")
+    (mrec, (MA, MP, MD0, _)), l_mx = _path(
+        "maxwell", lambda: maxwell_lane.lane_maxwell(NX_MAXWELL, dev))
+    print("  record: " + json.dumps(mrec))
+    check_maxwell(mrec, l_mx)
+
     small_check(dev)
+    small_check_maxwell(dev)
 
     # ---- kernel phase ------------------------------------------------
     print("kernel phase (kernel vs plain on the card):")
-    rows = kernel_phase(A_levels[0], P_levels[0], dev)
+    rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), dev)
     kernels = []
-    for name, (src, replaces) in SOURCES.items():
+    for name, (src, replaces, path) in SOURCES.items():
         r = rows[name]
+        head = r[PRIMARY.get(name, 0)]
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name],
+            name=name, path=path, route="cuda", source=src,
+            replaces=replaces,
+            launches=l_h1[name] + l_mx[name],
+            launches_by_path={"h1": l_h1[name], "maxwell": l_mx[name]},
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
-            ms=r[0]["ms"], plain_ms=r[0]["plain_ms"], variants=r))
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            format_bytes=head["format_bytes"],
+            library_ms=head["library_ms"], variants=r))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,3 +28,10 @@ def device():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "False")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(dev=None):
+    """The device argument of every entry point: None means device(),
+    the card (RuntimeError without one); the CPU only when the caller
+    names it (device="cpu")."""
+    return device() if dev is None else torch.device(dev)

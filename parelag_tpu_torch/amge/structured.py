@@ -1,8 +1,10 @@
 """Structured AMGe setup for cartesian-nested hex grids (PyTorch).
 
 Counterpart of parelag_tpu/amge/structured.py, restricted to what the H1
-flagship setup reaches (bench.py::_structured_chain and
-_build_h1_structured): on a cartesian 2x2x2 agglomeration of a hex grid
+flagship setup (bench.py::_structured_chain and _build_h1_structured)
+and the Maxwell lane's structured branch (bench.py::lane_maxwell: the
+global masses and derivatives, the boundary marker and the H(curl)
+prolongator) reach: on a cartesian 2x2x2 agglomeration of a hex grid
 with order-0 upscaling targets every agglomerated entity of a family has
 the same local structure, so every stage of Coarsen() is one uniform
 batched dense operation over all entities of the family.  The stage
@@ -41,6 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops.device_sparse import as_torch_dtype
 
 # --------------------------------------------------------------------- #
@@ -362,6 +365,18 @@ def assemble_global(blocks, dofmap, ndofs):
     cols = np.tile(dofmap, (1, k)).ravel()
     return sp.coo_matrix(
         (blocks.ravel(), (rows, cols)), shape=(ndofs, ndofs)).tocsr()
+
+
+def assemble_d_csr(dvals, dcols, shape_mat):
+    """Host CSR of a derivative operator from its per-row value array
+    and static column pattern."""
+    import scipy.sparse as sp
+    dvals = np.asarray(dvals)
+    n, k = dvals.shape
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    return sp.coo_matrix(
+        (dvals.ravel(), (rows, np.asarray(dcols).ravel())),
+        shape=shape_mat).tocsr()
 # --------------------------------------------------------------------- #
 # coarse->fine child id arrays (factor-2 nesting)
 # --------------------------------------------------------------------- #
@@ -888,6 +903,15 @@ def _solve_batch(A, rhs):
     return torch.linalg.solve(A, rhs)
 
 
+def _eigvalsh(G):
+    """Eigenvalues of a batch of small symmetric Gram matrices, computed
+    in f64 and returned in G's dtype.  On the card, torch.linalg.eigvalsh
+    in f32 (cuSOLVER) returns NaN for an exactly-zero 3 x 3 matrix, which
+    the deflated trace Gram of a homogeneous level is; in f64 (and
+    through MAGMA) it does not (parelag_tpu_torch/eigvalsh_probe.py)."""
+    return torch.linalg.eigvalsh(G.double()).to(G.dtype)
+
+
 def _snap_zero(lam):
     """Zero-snap of structurally-zero coarse-derivative entries: exact
     arithmetic leaves them at the f64 eps floor."""
@@ -900,7 +924,7 @@ def _bub_sv(bub):
     if not bub.shape[2]:
         return bub.new_zeros(())
     G = torch.einsum("nit,nis->nts", bub, bub)
-    return torch.sqrt(torch.clamp(torch.linalg.eigvalsh(G).max(), min=0.0))
+    return torch.sqrt(torch.clamp(_eigvalsh(G).max(), min=0.0))
 
 
 def _coarse_mass(basis, Mae):
@@ -939,11 +963,12 @@ class StructuredLevel:
     t3: object = None       # (nc, k3)
 
 
-def fine_level(shape, dtype=torch.float64, device="cpu") -> StructuredLevel:
+def fine_level(shape, dtype=torch.float64, device=None) -> StructuredLevel:
     """Level-0 state on the [0,1]^3 brick grid (cell size 1/shape per
-    axis), homogeneous coefficients.  The per-entity local
-    matrices are identical, so they are stored as broadcast (stride-0)
-    views of one block each."""
+    axis), homogeneous coefficients, on `device` (None: the card).  The
+    per-entity local matrices are identical, so they are stored as
+    broadcast (stride-0) views of one block each."""
+    device = resolve_device(device)
     h = tuple(1.0 / s for s in shape)
     nc, nf, ne, nv = grid_counts(shape)
     dt = as_torch_dtype(dtype)
@@ -1012,7 +1037,7 @@ def _trace_scalar_stage(m_children, pv_children, t_children):
     w = Td * torch.sqrt(m_children)[:, :, None]
     G = torch.einsum("nkt,nks->nts", w, w)
     if kt:
-        ev = torch.linalg.eigvalsh(G)
+        ev = _eigvalsh(G)
         max_rel = torch.max(torch.sqrt(torch.clamp(ev, min=0.0))
                             / dots[:, None])
     else:
@@ -1572,14 +1597,27 @@ def _np(t):
 
 
 def materialize_P(out: LevelOut, fshape, jform):
-    """Host CSR of the structured P for one form at one level (this
-    slice ports the H1 form, jform=0)."""
+    """Host CSR of the structured P for one form at one level (ported:
+    the H1 form, jform=0, and the H(curl) form, jform=1)."""
     import scipy.sparse as sp
+    ncf_, nff, nef, nvf = grid_counts(fshape)
+    ncc, nfc, nec, nvc = grid_counts(out.cshape)
+    if jform == 1:
+        rows = np.concatenate([
+            out.ce.ravel(),
+            np.repeat(out.fuedges[:, :4].ravel(), 4),
+            np.repeat(out.uedges[:, :6].ravel(), 12)])
+        cols = np.concatenate([
+            np.repeat(np.arange(sum(nec)), 2),
+            np.tile(out.fedges, (1, 4)).reshape(-1),
+            np.tile(out.cedges, (1, 6)).reshape(-1)])
+        vals = np.concatenate([_np(out.ptr1).ravel(), _np(out.pf1).ravel(),
+                               _np(out.pc1).ravel()])
+        return sp.coo_matrix((vals, (rows, cols)),
+                             shape=(sum(nef), sum(nec))).tocsr()
     if jform != 0:
         raise NotImplementedError(f"materialize_P for jform={jform} is "
                                   "not ported yet")
-    ncf_, nff, nef, nvf = grid_counts(fshape)
-    ncc, nfc, nec, nvc = grid_counts(out.cshape)
     rows = np.concatenate([
         out.cv,
         np.repeat(out.euverts[:, 0], 2),
@@ -1609,6 +1647,71 @@ def coarsen_chain(lvl: StructuredLevel, nlevels):
         levels.append(lvl)
         outs.append(out)
     return levels, outs
+
+
+def global_mass(lvl: StructuredLevel, jform):
+    """Host CSR global mass of one form assembled from the level's
+    codim-0 local blocks (ComputeMassOperator analog)."""
+    import scipy.sparse as sp
+    shape = lvl.shape
+    nc, nf, ne, nv = grid_counts(shape)
+    if jform == 0:
+        return assemble_global(_np(lvl.m00), cell_verts(shape), nv)
+    if jform == 1:
+        return assemble_global(_np(lvl.m01), cell_edges(shape), sum(ne))
+    if jform == 2:
+        return assemble_global(_np(lvl.m02), cell_faces(shape), sum(nf))
+    if jform == 3:
+        return sp.diags(_np(lvl.m03)).tocsr()
+    raise ValueError(jform)
+
+
+def global_derivative(lvl: StructuredLevel, jform):
+    """Host CSR derivative operator D_jform of the level."""
+    shape = lvl.shape
+    nc, nf, ne, nv = grid_counts(shape)
+    if jform == 0:
+        return assemble_d_csr(_np(lvl.d0), d0_cols(shape), (sum(ne), nv))
+    if jform == 1:
+        return assemble_d_csr(_np(lvl.d1), d1_cols(shape),
+                              (sum(nf), sum(ne)))
+    if jform == 2:
+        return assemble_d_csr(_np(lvl.d2), d2_cols(shape), (nc, sum(nf)))
+    raise ValueError(jform)
+
+
+def boundary_entity_marker(shape, jform):
+    """Boolean marker of grid-boundary entities in the global numbering
+    (verts jform=0, edges jform=1, faces jform=2) — the structured-grid
+    analog of mark_dofs_on_bndr over all 6 attributes.  An edge/vertex
+    is boundary when any transverse lattice coordinate sits at its
+    extreme; a face when its normal coordinate does."""
+    nx, ny, nz = shape
+
+    def fam(dims, bnd_axes):
+        ni, nj, nk = dims
+        m = np.zeros((nk, nj, ni), dtype=bool)
+        for ax, extent in bnd_axes:
+            sl = [slice(None)] * 3
+            sl[2 - ax] = 0
+            m[tuple(sl)] = True
+            sl[2 - ax] = extent
+            m[tuple(sl)] = True
+        return m.ravel()
+
+    if jform == 0:
+        return fam((nx + 1, ny + 1, nz + 1),
+                   [(0, nx), (1, ny), (2, nz)])
+    if jform == 1:
+        dims = ((nx, ny + 1, nz + 1), (nx + 1, ny, nz + 1),
+                (nx + 1, ny + 1, nz))
+        tr = ([(1, ny), (2, nz)], [(0, nx), (2, nz)], [(0, nx), (1, ny)])
+        return np.concatenate([fam(dims[a], tr[a]) for a in range(3)])
+    if jform == 2:
+        dims = ((nx + 1, ny, nz), (nx, ny + 1, nz), (nx, ny, nz + 1))
+        nr = ([(0, nx)], [(1, ny)], [(2, nz)])
+        return np.concatenate([fam(dims[a], nr[a]) for a in range(3)])
+    raise ValueError(jform)
 
 
 def _cell_edge_endpoint_slots(shape):

@@ -10,11 +10,13 @@ torch.bfloat16.
 import numpy as np
 import torch
 
+from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.amge.structured import StructuredLevel
 from parelag_tpu_torch.ops.device_sparse import (
     BcsrMatrix, DiaMatrix, EllMatrix, TileCooMatrix)
 from parelag_tpu_torch.solvers.hierarchy import Hierarchy, Level
-from parelag_tpu_torch.solvers.smoothers import L1JacobiSmoother
+from parelag_tpu_torch.solvers.smoothers import (
+    HiptmairSmoother, L1JacobiSmoother)
 
 
 def _tensor(a, device):
@@ -54,11 +56,18 @@ def _smoother(S, device):
     name = type(S).__name__
     if name == "L1JacobiSmoother":
         return L1JacobiSmoother(_tensor(S.dinv, device), S.sweeps, S.omega)
+    if name == "HiptmairSmoother":
+        return HiptmairSmoother(
+            _smoother(S.primary, device), _smoother(S.aux, device),
+            _matrix(S.D, device), _matrix(S.Dt, device),
+            _matrix(S.A_aux, device))
     raise TypeError(f"smoother {name} is not ported")
 
 
-def hierarchy_from_numpy(H, device="cpu") -> Hierarchy:
-    """The port's Hierarchy for a JAX Hierarchy with numpy leaves."""
+def hierarchy_from_numpy(H, device=None) -> Hierarchy:
+    """The port's Hierarchy for a JAX Hierarchy with numpy leaves
+    (device=None: on the card)."""
+    device = resolve_device(device)
     if getattr(H, "perm", None) is not None:
         raise TypeError("reordered (RCM) hierarchies are not ported")
     levels = []
@@ -73,9 +82,11 @@ def hierarchy_from_numpy(H, device="cpu") -> Hierarchy:
     return Hierarchy(levels, H.mu)
 
 
-def structured_level_from_numpy(lvl, device="cpu") -> StructuredLevel:
+def structured_level_from_numpy(lvl, device=None) -> StructuredLevel:
     """The port's StructuredLevel for a JAX StructuredLevel with numpy
-    leaves (fields the port does not carry are refused)."""
+    leaves (fields the port does not carry are refused; device=None: on
+    the card)."""
+    device = resolve_device(device)
     fields = {k: v for k, v in vars(lvl).items() if k != "shape"}
     known = set(StructuredLevel.__dataclass_fields__) - {"shape"}
     extra = set(fields) - known

@@ -8,9 +8,12 @@ Counterpart of bench.py's flagship lane (`_structured_chain`,
 The host pieces (boundary elimination, the Galerkin propagation of the
 elimination term, the f64 scipy anchor) are copies of the JAX bench's
 host code; `eliminate_rowcols` is copied from models/upscaling.py.
+With n_rhs set, lane_h1 adds the multi-RHS record of bench.py (block
+PCG on n_rhs right-hand sides through the same hierarchy).
 
     from parelag_tpu_torch import flagship
-    record, _ = flagship.lane_h1(96, "cuda")
+    record, _ = flagship.lane_h1(96)              # on the card
+    record, _ = flagship.lane_h1(96, n_rhs=16)    # + record["multirhs"]
 """
 
 import time
@@ -19,7 +22,9 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.amge import structured as stc
+from parelag_tpu_torch.ops.device_sparse import DiaMatrix, EllMatrix
 from parelag_tpu_torch.ops import hopper_kernels
 from parelag_tpu_torch.solvers.autotune import _factory
 from parelag_tpu_torch.solvers.cg import pcg
@@ -65,20 +70,20 @@ def n_levels(nx, min_coarse=256):
     return nlev
 
 
-def structured_chain(nx, min_coarse=256, dtype=np.float32, device="cpu"):
+def structured_chain(nx, min_coarse=256, dtype=np.float32, device=None):
     """The structured coarsening chain of the flagship grid, on
-    `device` with direct batched solves."""
+    `device` (None: the card) with direct batched solves."""
     lvl0 = stc.fine_level((nx, nx, nx), dtype=dtype, device=device)
     return stc.coarsen_chain(lvl0, n_levels(nx, min_coarse))
 
 
 def build_h1_structured(nx, min_coarse=256, dtype=np.float32,
-                        device="cpu"):
-    """Flagship H1 operators via the structured engine: per-level
-    operators assemble from per-cell blocks (fine level: one analytic
-    broadcast block) and the boundary elimination propagates as a
-    Galerkin-corrected sparse term.  Returns (A_levels, P_levels, b) as
-    host scipy CSR / numpy."""
+                        device=None):
+    """Flagship H1 operators via the structured engine (run on `device`,
+    None: the card): per-level operators assemble from per-cell blocks
+    (fine level: one analytic broadcast block) and the boundary
+    elimination propagates as a Galerkin-corrected sparse term.  Returns
+    (A_levels, P_levels, b) as host scipy CSR / numpy."""
     shape = (nx, nx, nx)
     levels, outs = structured_chain(nx, min_coarse, dtype, device)
 
@@ -169,11 +174,12 @@ def host_vcycle_pcg(A_levels, P_levels, b, rtol, maxiter=100, sweeps=2,
     return x, it + 1
 
 
-def build_solver(A_levels, P_levels, device):
-    """The flagship's device hierarchy in f32: DIA operators (<= 48
-    offsets, else BCSR), bf16 transfers, l1-Jacobi V(2,2).  Returns
-    (H, Hb) with Hb = H cast to bf16 (the preconditioner; its coarse
-    inverse stays f32)."""
+def build_solver(A_levels, P_levels, device=None):
+    """The flagship's device hierarchy in f32 (device None: the card):
+    DIA operators (<= 48 offsets, else BCSR), bf16 transfers, l1-Jacobi
+    V(2,2).  Returns (H, Hb) with Hb = H cast to bf16 (the
+    preconditioner; its coarse inverse stays f32)."""
+    device = resolve_device(device)
     H = build_hierarchy(A_levels, P_levels, _factory(CYCLE, device),
                         mu=CYCLE["mu"], dtype=np.float32,
                         matrix_format="dia", transfer_dtype=torch.bfloat16,
@@ -183,21 +189,96 @@ def build_solver(A_levels, P_levels, device):
 
 def solve(H, Hb, b):
     """f32 PCG on H's fine operator, preconditioned by one bf16 V-cycle
-    of Hb.  Returns (x, (iterations, r.z))."""
+    of Hb; b (n,) or (n, s) (block PCG, column-wise dots).  Returns
+    (x, (iterations, r.z))."""
     def precond(r):
         return Hb.apply(r.to(torch.bfloat16)).to(torch.float32)
     return pcg(H.levels[0].A.matvec, b, precond=precond, rtol=RTOL,
                atol=0.0, maxiter=MAXITER)
 
 
-def lane_h1(nx, device, min_coarse=256):
+def _timed_solves(H, Hb, b):
+    """REPEATS solves of b timed with CUDA events: (seconds per solve,
+    iterations per solve, hand-kernel launches during them)."""
+    before = dict(hopper_kernels.LAUNCHES)
+    times, iters = [], []
+    for _ in range(REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, (it, _) = solve(H, Hb, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        iters.append(int(it))
+    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
+               for k in hopper_kernels.LAUNCHES}
+    return times, iters, kernels
+
+
+def _stored_entries(M):
+    """Stored operator entries as bench.py's flop model counts them:
+    the DIA table, ELL values or BCSR/TileCoo tiles."""
+    if isinstance(M, DiaMatrix):
+        return M.data.numel()
+    if isinstance(M, EllMatrix):
+        return M.values.numel()
+    return M.tiles.numel() if hasattr(M, "tiles") else 0
+
+
+def multirhs_record(H, Hb, A0, n_rhs):
+    """The multi-RHS record of bench.py's lane_h1 (bench.py:582-614) on
+    the hierarchy of the 1-RHS solve: block PCG on B =
+    RandomState(0).randn(ndofs, n_rhs) in f32, one warm solve checked
+    column by column in host f64 (rel_res_max), column 0 solved alone
+    on the card for comparison (col0_rel_diff), then REPEATS timed
+    solves (median)."""
+    device = next(H.buffers()).device
+    ndofs = A0.shape[0]
+    B = np.random.RandomState(0).randn(ndofs, n_rhs).astype(np.float32)
+    Bt = torch.as_tensor(B).to(device)
+    X, (it, _) = solve(H, Hb, Bt)
+    niter = int(it)
+    Xh = X.double().cpu().numpy()
+    B64 = B.astype(np.float64)
+    rel = (np.linalg.norm(B64 - A0.astype(np.float64) @ Xh, axis=0)
+           / np.linalg.norm(B64, axis=0))
+    x0, (it0, _) = solve(H, Hb, Bt[:, 0].contiguous())
+    x0h = x0.double().cpu().numpy()
+    col0 = float(np.linalg.norm(Xh[:, 0] - x0h) / np.linalg.norm(x0h))
+    times, timed_iters, kernels = _timed_solves(H, Hb, Bt)
+    solve_s = float(np.median(times))
+    # bench.py's flop model: 2 flops per stored operator entry per RHS
+    # for every SpMV of an iteration (fine matvec + V(2,2) cycle)
+    # (bench.py counts A only where it is DIA)
+    def dia_entries(M):
+        return _stored_entries(M) if isinstance(M, DiaMatrix) else 0
+
+    ent = sum(dia_entries(l.A) * (2 * 2 + 1)        # sweeps + residual
+              + _stored_entries(l.R) + _stored_entries(l.P)
+              for l in Hb.levels if l.coarse_inv is None)
+    ent += dia_entries(H.levels[0].A)
+    flops_iter = 2 * ent * n_rhs
+    return dict(n_rhs=n_rhs, iters=niter, converged=niter < MAXITER,
+                timed_iters=timed_iters, solve_s=solve_s,
+                solve_s_all=times,
+                value=ndofs * niter * n_rhs / solve_s,
+                unit="dof_iter_per_s", flops_per_iter=flops_iter,
+                achieved_tflops=flops_iter * niter / solve_s / 1e12,
+                rel_res_max=float(rel.max()), rel_res_cols=rel.tolist(),
+                col0_iters=int(it0), col0_rel_diff=col0, kernels=kernels)
+
+
+def lane_h1(nx, device=None, n_rhs=None, min_coarse=256):
     """The flagship record on the card: setup (structured chain + device
     hierarchy), one warm f32 PCG solve checked in host f64, REPEATS
     solves timed with CUDA events (median), and the host f64 scipy
     anchor on the same matrices.  `kernels` holds the hand-kernel
-    launches of the timed solves, read after them.  Returns (record,
-    (A_levels, P_levels, b)); refuses to run without a card."""
-    device = torch.device(device)
+    launches of the timed solves, read after them.  With n_rhs, the
+    record's "multirhs" entry is multirhs_record on the same hierarchy.
+    Returns (record, (A_levels, P_levels, b)); refuses to run without a
+    card."""
+    device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("lane_h1 measures the card and needs a CUDA "
                            f"device, not {device}")
@@ -220,19 +301,7 @@ def lane_h1(nx, device, min_coarse=256):
     rel = float(np.linalg.norm(b64 - A_levels[0].astype(np.float64) @ xh)
                 / np.linalg.norm(b64))
 
-    before = dict(hopper_kernels.LAUNCHES)
-    times, timed_iters = [], []
-    for _ in range(REPEATS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, (it_t, _) = solve(H, Hb, bt)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-        timed_iters.append(int(it_t))
-    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
-               for k in hopper_kernels.LAUNCHES}
+    times, timed_iters, kernels = _timed_solves(H, Hb, bt)
     solve_s = float(np.median(times))
 
     out = dict(metric="h1_amge_vcycle_pcg_throughput", ndofs=ndofs,
@@ -259,4 +328,6 @@ def lane_h1(nx, device, min_coarse=256):
     out.update(host_iters=ith, host_solve_s=host_dt,
                host_dof_iter_per_s=ndofs * ith / host_dt)
     out["vs_baseline"] = out["dof_iter_per_s"] / out["host_dof_iter_per_s"]
+    if n_rhs:
+        out["multirhs"] = multirhs_record(H, Hb, A_levels[0], n_rhs)
     return out, (A_levels, P_levels, b)

@@ -7,16 +7,24 @@ the integer index arrays alone (Hierarchy.cast relies on this).  The
 structure metadata (shape, offsets, padding) are plain attributes.
 
   DiaMatrix      gather-free shift SpMV; matvec and fused Jacobi sweeps
-                 go through ops/hopper_kernels (CUDA kernels on the card)
+                 go through ops/hopper_kernels (dia_spmv /
+                 dia_jacobi_sweep, and their _multirhs kernels for
+                 (n, s) inputs)
   BcsrMatrix     8 x 128 block-sparse rows; matvec through
-                 hopper_kernels.bcsr_spmv
+                 hopper_kernels.bcsr_spmv (bcsr_spmv_multirhs for (m, s))
   TileCooMatrix  only the nonempty tiles, with a segment-sum over row
-                 blocks (index_add_, plain torch as in JAX)
-  EllMatrix      padded rows (gather + row reduce, plain torch)
+                 blocks (index_add_, plain torch as XLA's segment_sum in
+                 JAX, for (m,) and (m, s) alike)
+  EllMatrix      padded rows (gather + row reduce); matvec through
+                 hopper_kernels.ell_spmv (the kernel for a 1-D x on the
+                 card, where the JAX ell_matvec_best takes the Pallas
+                 kernel wherever it lowers)
 
+Every matvec takes x of shape (m,) or (m, s), as the JAX formats do.
 The DIA table is kept at its logical width n: the CUDA kernel bounds-
 checks its x reads, so the 8192-row tile padding of the TPU layout is
-not needed.
+not needed.  The converters (from_scipy, to_bcsr, to_tilecoo, to_dia)
+put the matrix on the card unless the caller names another device.
 """
 
 import numpy as np
@@ -24,6 +32,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops import hopper_kernels as hk
 
 
@@ -52,7 +61,9 @@ def _promoted(*ts):
 
 class EllMatrix(nn.Module):
     """ELL layout: indices (n, k) int32, values (n, k); padding entries
-    point at column 0 with value 0."""
+    point at column 0 with value 0.  The matvec is hopper_kernels.
+    ell_spmv: the CUDA kernel on the card (1-D x, f32 or f64), its plain
+    gather + row reduce on the CPU."""
 
     def __init__(self, indices, values, shape):
         super().__init__()
@@ -65,16 +76,15 @@ class EllMatrix(nn.Module):
         return self.values.dtype
 
     def matvec(self, x):
-        dt = _promoted(self.values, x)
-        return torch.einsum("nk,nk->n", self.values.to(dt),
-                            x.to(dt)[self.indices])
+        return hk.ell_spmv(self.indices, self.values, x)
 
     def __matmul__(self, x):
         return self.matvec(x)
 
 
-def from_scipy(A, dtype=None, device="cpu") -> EllMatrix:
+def from_scipy(A, dtype=None, device=None) -> EllMatrix:
     """Convert scipy sparse to device ELL."""
+    device = resolve_device(device)
     A = sp.csr_matrix(A)
     n, m = A.shape
     dtype = dtype or A.dtype
@@ -109,6 +119,9 @@ class BcsrMatrix(nn.Module):
         return self.tiles.dtype
 
     def matvec(self, x):
+        if x.ndim == 2:
+            return hk.bcsr_spmv_multirhs(self.col_blocks, self.tiles, x,
+                                         self.shape[0])
         return hk.bcsr_spmv(self.col_blocks, self.tiles, x, self.shape[0])
 
     def __matmul__(self, x):
@@ -131,8 +144,9 @@ def _bcsr_blocks(A):
     return coo, nbc, rb, uk, inv
 
 
-def to_bcsr(A, dtype=np.float32, device="cpu") -> BcsrMatrix:
+def to_bcsr(A, dtype=np.float32, device=None) -> BcsrMatrix:
     """Convert scipy sparse to the BCSR device layout (vectorized)."""
+    device = resolve_device(device)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
     n, m = A.shape
@@ -181,14 +195,19 @@ class TileCooMatrix(nn.Module):
         n, m = self.shape
         out = _promoted(self.tiles, x)
         acc = hk.acc_dtype(out)
-        xp = torch.zeros(self.padded[1], dtype=acc, device=x.device)
+        rest = tuple(x.shape[1:])
+        xp = torch.zeros((self.padded[1],) + rest, dtype=acc,
+                         device=x.device)
         xp[:m] = x.to(acc)
-        g = xp.reshape(-1, BC)[self.col_blocks]               # (t, 128)
-        part = torch.einsum("trc,tc->tr", self.tiles.to(acc), g)
-        y = torch.zeros((self.padded[0] // BR, BR), dtype=acc,
+        g = xp.reshape((-1, BC) + rest)[self.col_blocks]   # (t, 128[, s])
+        if x.ndim == 2:
+            part = torch.einsum("trc,tcs->trs", self.tiles.to(acc), g)
+        else:
+            part = torch.einsum("trc,tc->tr", self.tiles.to(acc), g)
+        y = torch.zeros((self.padded[0] // BR, BR) + rest, dtype=acc,
                         device=x.device)
         y.index_add_(0, self.row_blocks, part)
-        return y.reshape(-1)[:n].to(out)
+        return y.reshape((-1,) + rest)[:n].to(out)
 
     def __matmul__(self, x):
         return self.matvec(x)
@@ -207,8 +226,9 @@ def bcsr_stats(A):
     return nbr, max(kb, 1), int(uk.size)
 
 
-def to_tilecoo(A, dtype=np.float32, device="cpu") -> TileCooMatrix:
+def to_tilecoo(A, dtype=np.float32, device=None) -> TileCooMatrix:
     """Convert scipy sparse to COO-of-tiles (sorted by row block)."""
+    device = resolve_device(device)
     A = sp.csr_matrix(A)
     A.sum_duplicates()
     n, m = A.shape
@@ -244,29 +264,42 @@ class DiaMatrix(nn.Module):
         return self.data.dtype
 
     def matvec(self, x):
+        """x (m,) or (m, s); an (m, s) x goes through the multi-RHS
+        kernel, which on the card takes s <= 64 and x of the table's
+        dtype and raises otherwise."""
+        if x.ndim == 2:
+            return hk.dia_spmv_multirhs(self.data, self.offs, x,
+                                        self.shape[0])
         return hk.dia_spmv(self.data, self.offs, x, self.shape[0])
 
     def jacobi_sweeps(self, b, x, dinv_omega, sweeps):
         """`sweeps` fused (weighted-)Jacobi sweeps x <- x + dinv_omega *
-        (b - A x), one kernel launch per sweep.  As in the JAX module, x
+        (b - A x), one kernel launch per sweep; b and x (n,) or (n, s),
+        dinv_omega (n,) shared by the columns.  As in the JAX module, x
         is cast to b's dtype and the fused path applies only to a square
-        operator and a right-hand side of the table's dtype; otherwise it
-        returns None and the smoother takes its generic path."""
+        operator, a right-hand side of the table's dtype and s <= 64;
+        otherwise it returns None and the smoother takes its generic
+        path."""
         n, m = self.shape
         if not (n == m and b.dtype == self.data.dtype):
             return None
+        if b.ndim == 2 and b.shape[1] > hk.MAX_RHS:
+            return None
+        sweep = (hk.dia_jacobi_sweep_multirhs if b.ndim == 2
+                 else hk.dia_jacobi_sweep)
         dw = dinv_omega.to(b.dtype)
         x = x.to(b.dtype)
         for _ in range(sweeps):
-            x = hk.dia_jacobi_sweep(self.data, self.offs, x, b, dw)
+            x = sweep(self.data, self.offs, x, b, dw)
         return x
 
     def __matmul__(self, x):
         return self.matvec(x)
 
 
-def to_dia(A, dtype=np.float32, device="cpu") -> DiaMatrix:
+def to_dia(A, dtype=np.float32, device=None) -> DiaMatrix:
     """Convert scipy sparse to the row-aligned diagonal layout."""
+    device = resolve_device(device)
     A = sp.csr_matrix(A)
     n, m = A.shape
     coo = A.tocoo()

@@ -1,31 +1,44 @@
 """Hand-written Hopper kernels for the solve-phase hot ops, with their
 plain PyTorch versions.
 
-Counterpart of parelag_tpu/ops/pallas_kernels.py.  Three kernels carry
-the H1 flagship's V-cycle PCG (CUDA C++ for sm_90a in csrc/, built by
-ops/build.py):
+Counterpart of parelag_tpu/ops/pallas_kernels.py.  Every Pallas kernel
+of the JAX package has a CUDA C++ counterpart for sm_90a here (sources
+in csrc/, built by ops/build.py):
 
-  dia_spmv          csrc/dia.cu   replaces dia_spmv_pallas
-  dia_jacobi_sweep  csrc/dia.cu   replaces dia_jacobi_sweep_pallas
-  bcsr_spmv         csrc/bcsr.cu  replaces bcsr_spmv_pallas
+  dia_spmv                   csrc/dia.cu   replaces dia_spmv_pallas
+  dia_jacobi_sweep           csrc/dia.cu   replaces dia_jacobi_sweep_pallas
+  dia_spmv_multirhs          csrc/dia.cu   replaces dia_spmv_multirhs_pallas
+  dia_jacobi_sweep_multirhs  csrc/dia.cu   replaces
+                                           dia_jacobi_sweep_multirhs_pallas
+  bcsr_spmv                  csrc/bcsr.cu  replaces bcsr_spmv_pallas
+  bcsr_spmv_multirhs         csrc/bcsr.cu  BcsrMatrix.matvec on (m, s)
+                                           (XLA in the JAX package)
+  ell_spmv                   csrc/ell.cu   replaces ell_spmv_pallas
 
-Dispatch is by tensor device, never by a try/except: a CPU tensor runs
-the plain version, a CUDA tensor launches the kernel or raises.  Each
-wrapper adds one to LAUNCHES[name] where it launches its kernel and
+Each plain version takes x of shape (m,) or (m, s), as the JAX formats
+do; the multi-RHS wrappers use the same plain functions as the 1-RHS
+ones.  Dispatch is by tensor device, never by a try/except: a CPU tensor
+runs the plain version, a CUDA tensor launches the kernel or raises.
+Each wrapper adds one to LAUNCHES[name] where it launches its kernel and
 nowhere else, so a run can show which kernels it went through.  The
-TPU-only machinery of the JAX module (the lowering probe, retry and
-disable latches, the 1024-aligned x superblock) has no counterpart.
+TPU-only machinery of the JAX module (the lowering probes, retry and
+disable latches, the 1024-aligned x superblock, the transposed (s, n)
+multi-RHS layout) has no counterpart.
 """
 
 import ctypes
 
 import torch
 
-LAUNCHES = {"dia_spmv": 0, "dia_jacobi_sweep": 0, "bcsr_spmv": 0}
+LAUNCHES = {"dia_spmv": 0, "dia_jacobi_sweep": 0, "dia_spmv_multirhs": 0,
+            "dia_jacobi_sweep_multirhs": 0, "bcsr_spmv": 0,
+            "bcsr_spmv_multirhs": 0, "ell_spmv": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 DIA_MAX_OFFS = 48            # csrc/dia.cu DIA_MAX_OFFS
+MAX_RHS = 64                 # s limit of the multi-RHS kernels
+                             # (DiaMatrix._MAX_RHS of the JAX module)
 BCSR_BR, BCSR_BC = 8, 128    # csrc/bcsr.cu tile shape
 
 _LIB = None
@@ -79,24 +92,59 @@ def _raise_rc(name, rc):
                            f"{rc}")
 
 
+def _rows(v, x):
+    """v (n,) broadcast against x (n,) or (n, s)."""
+    return v[:, None] if x.ndim == 2 else v
+
+
 # --------------------------------------------------------------------- #
-# DIA SpMV
+# DIA SpMV and the fused Jacobi sweep, 1 and s right-hand sides
 # --------------------------------------------------------------------- #
 
 def dia_spmv_plain(data, offs, x, n):
     """y[i] = sum_d data[d, i] * x[i + offs[d]] for i < n, x[j] = 0
-    outside [0, m).  The result takes the promoted dtype of data and x
-    and accumulates in f32 (f64 for f64), like the kernel."""
+    outside [0, m); x (m,) or (m, s) (every column at once).  The result
+    takes the promoted dtype of data and x and accumulates in f32 (f64
+    for f64), like the kernels."""
     m = x.shape[0]
     out = torch.promote_types(data.dtype, x.dtype)
     acc = acc_dtype(out)
     xa = x.to(acc)
-    y = torch.zeros(n, dtype=acc, device=x.device)
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=acc, device=x.device)
     for d, off in enumerate(offs):
         lo, hi = max(0, -off), min(n, m - off)
         if hi > lo:
-            y[lo:hi] += data[d, lo:hi].to(acc) * xa[lo + off:hi + off]
+            y[lo:hi] += _rows(data[d, lo:hi].to(acc), x) \
+                * xa[lo + off:hi + off]
     return y.to(out)
+
+
+def dia_jacobi_sweep_plain(data, offs, x, b, dw):
+    """One fused weighted-Jacobi sweep x + dw * (b - A x) of a square DIA
+    operator (dw (n,) carries omega * dinv and is shared by the columns
+    of a 2-D x), computed in f32 (f64 for f64) and stored in x's dtype,
+    like the kernels."""
+    n = x.shape[0]
+    acc = acc_dtype(x.dtype)
+    ax = dia_spmv_plain(data, offs, x.to(acc), n).to(acc)
+    return (x.to(acc) + _rows(dw.to(acc), x) * (b.to(acc) - ax)
+            ).to(x.dtype)
+
+
+def _dia_args(name, data, offs, n, *ts):
+    nd, ld = data.shape
+    _check(name, data.dtype in DTYPE_CODES
+           and all(t.dtype == data.dtype for t in ts),
+           f"dtypes {data.dtype}/{[str(t.dtype) for t in ts]} (need "
+           "equal f32, bf16 or f64)")
+    _check(name, len(offs) == nd and 1 <= nd <= DIA_MAX_OFFS,
+           f"{len(offs)} offsets for a table of {nd} rows (max "
+           f"{DIA_MAX_OFFS})")
+    _check(name, ld >= n, f"table width {ld} < n={n}")
+    _check(name, data.is_contiguous() and all(t.is_contiguous()
+                                              for t in ts),
+           "tensors must be contiguous")
+    return nd, ld, (ctypes.c_int * nd)(*[int(o) for o in offs])
 
 
 def dia_spmv(data, offs, x, n):
@@ -106,19 +154,10 @@ def dia_spmv(data, offs, x, n):
     if _on_cpu(data, x):
         return dia_spmv_plain(data, offs, x, n)
     name = "dia_spmv"
-    nd, ld = data.shape
     _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
-    _check(name, data.dtype == x.dtype and data.dtype in DTYPE_CODES,
-           f"dtypes {data.dtype}/{x.dtype} (need equal f32, bf16 or f64)")
-    _check(name, len(offs) == nd and 1 <= nd <= DIA_MAX_OFFS,
-           f"{len(offs)} offsets for a table of {nd} rows (max "
-           f"{DIA_MAX_OFFS})")
-    _check(name, ld >= n, f"table width {ld} < n={n}")
-    _check(name, data.is_contiguous() and x.is_contiguous(),
-           "tensors must be contiguous")
+    nd, ld, c_offs = _dia_args(name, data, offs, n, x)
     lib = load()
     y = torch.empty(n, dtype=data.dtype, device=x.device)
-    c_offs = (ctypes.c_int * nd)(*[int(o) for o in offs])
     with torch.cuda.device(x.device):
         rc = lib.dia_spmv_launch(DTYPE_CODES[data.dtype], _ptr(data),
                                  _ptr(x), _ptr(y), c_offs, nd, ld, n,
@@ -128,42 +167,19 @@ def dia_spmv(data, offs, x, n):
     return y
 
 
-# --------------------------------------------------------------------- #
-# fused DIA Jacobi sweep
-# --------------------------------------------------------------------- #
-
-def dia_jacobi_sweep_plain(data, offs, x, b, dw):
-    """One fused weighted-Jacobi sweep x + dw * (b - A x) of a square DIA
-    operator (dw carries omega * dinv), computed in f32 (f64 for f64)
-    and stored in x's dtype, like the kernel."""
-    n = x.shape[0]
-    acc = acc_dtype(x.dtype)
-    ax = dia_spmv_plain(data, offs, x.to(acc), n).to(acc)
-    return (x.to(acc) + dw.to(acc) * (b.to(acc) - ax)).to(x.dtype)
-
-
 def dia_jacobi_sweep(data, offs, x, b, dw):
     """Fused DIA Jacobi sweep (csrc/dia.cu on CUDA); x, b, dw (n,) of the
     table's dtype.  Returns a new x; the input is not overwritten."""
     if _on_cpu(data, x, b, dw):
         return dia_jacobi_sweep_plain(data, offs, x, b, dw)
     name = "dia_jacobi_sweep"
-    nd, ld = data.shape
     n = x.shape[0]
     _check(name, x.ndim == 1 and b.shape == x.shape and dw.shape == x.shape,
            f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
            f"dw{tuple(dw.shape)}")
-    _check(name, data.dtype in DTYPE_CODES
-           and x.dtype == b.dtype == dw.dtype == data.dtype,
-           f"dtypes {data.dtype}/{x.dtype}/{b.dtype}/{dw.dtype}")
-    _check(name, len(offs) == nd and 1 <= nd <= DIA_MAX_OFFS,
-           f"{len(offs)} offsets for a table of {nd} rows")
-    _check(name, ld >= n, f"table width {ld} < n={n}")
-    _check(name, all(t.is_contiguous() for t in (data, x, b, dw)),
-           "tensors must be contiguous")
+    nd, ld, c_offs = _dia_args(name, data, offs, n, x, b, dw)
     lib = load()
     out = torch.empty_like(x)
-    c_offs = (ctypes.c_int * nd)(*[int(o) for o in offs])
     with torch.cuda.device(x.device):
         rc = lib.dia_jacobi_sweep_launch(
             DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(b), _ptr(dw),
@@ -173,8 +189,55 @@ def dia_jacobi_sweep(data, offs, x, b, dw):
     return out
 
 
+def dia_spmv_multirhs(data, offs, x, n):
+    """DIA SpMV of s right-hand sides at once (csrc/dia.cu on CUDA,
+    dia_spmv_plain on CPU): x (m, s) row-major, y (n, s); the table is
+    read once for all s columns.  On CUDA: 1 <= s <= 64, nd <= 48 and x
+    of the table's dtype."""
+    if _on_cpu(data, x):
+        return dia_spmv_plain(data, offs, x, n)
+    name = "dia_spmv_multirhs"
+    _check(name, x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS,
+           f"x{tuple(x.shape)} must be (m, s) with 1 <= s <= {MAX_RHS}")
+    nd, ld, c_offs = _dia_args(name, data, offs, n, x)
+    m, s = x.shape
+    lib = load()
+    y = torch.empty((n, s), dtype=data.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.dia_spmv_multirhs_launch(
+            DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(y), c_offs,
+            nd, ld, n, m, s, _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return y
+
+
+def dia_jacobi_sweep_multirhs(data, offs, x, b, dw):
+    """Fused DIA Jacobi sweep of s right-hand sides (csrc/dia.cu on
+    CUDA): x, b (n, s), dw (n,) shared by the columns, all of the
+    table's dtype.  Returns a new x; the input is not overwritten."""
+    if _on_cpu(data, x, b, dw):
+        return dia_jacobi_sweep_plain(data, offs, x, b, dw)
+    name = "dia_jacobi_sweep_multirhs"
+    _check(name, x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS
+           and b.shape == x.shape and dw.shape == x.shape[:1],
+           f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
+           f"dw{tuple(dw.shape)} (need (n, s), s <= {MAX_RHS}, and (n,))")
+    n, s = x.shape
+    nd, ld, c_offs = _dia_args(name, data, offs, n, x, b, dw)
+    lib = load()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.dia_jacobi_sweep_multirhs_launch(
+            DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(b), _ptr(dw),
+            _ptr(out), c_offs, nd, ld, n, s, _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
 # --------------------------------------------------------------------- #
-# BCSR SpMV
+# BCSR SpMV, 1 and s right-hand sides
 # --------------------------------------------------------------------- #
 
 # (tiles, x) dtype pairs csrc/bcsr.cu is instantiated for
@@ -185,38 +248,47 @@ _BCSR_PAIRS = {
 
 
 def bcsr_spmv_plain(col_blocks, tiles, x, n):
-    """y = BCSR(col_blocks (nbr, kb), tiles (nbr, kb, 8, 128)) @ x (m,)
-    for the first n rows.  Accumulates in f32 (f64 for f64) and returns
-    the promoted dtype of tiles and x."""
+    """y = BCSR(col_blocks (nbr, kb), tiles (nbr, kb, 8, 128)) @ x for
+    the first n rows, x (m,) or (m, s).  Accumulates in f32 (f64 for
+    f64) and returns the promoted dtype of tiles and x."""
     bc = tiles.shape[3]
     out = torch.promote_types(tiles.dtype, x.dtype)
     acc = acc_dtype(out)
     m = x.shape[0]
-    xp = torch.zeros(-(-m // bc) * bc, dtype=acc, device=x.device)
+    rest = tuple(x.shape[1:])
+    xp = torch.zeros((-(-m // bc) * bc,) + rest, dtype=acc, device=x.device)
     xp[:m] = x.to(acc)
-    g = xp.reshape(-1, bc)[col_blocks]                     # (nbr, kb, bc)
-    y = torch.einsum("nkrc,nkc->nr", tiles.to(acc), g).reshape(-1)
-    return y[:n].to(out)
+    g = xp.reshape((-1, bc) + rest)[col_blocks]       # (nbr, kb, bc[, s])
+    if x.ndim == 2:
+        y = torch.einsum("nkrc,nkcs->nrs", tiles.to(acc), g)
+    else:
+        y = torch.einsum("nkrc,nkc->nr", tiles.to(acc), g)
+    return y.reshape((-1,) + rest)[:n].to(out)
 
 
-def bcsr_spmv(col_blocks, tiles, x, n):
-    """BCSR SpMV (csrc/bcsr.cu on CUDA).  On CUDA (tiles, x) is one of
-    bf16/bf16, bf16|f32 x bf16|f32, f64/f64."""
-    if _on_cpu(col_blocks, tiles, x):
-        return bcsr_spmv_plain(col_blocks, tiles, x, n)
-    name = "bcsr_spmv"
+def _bcsr_args(name, col_blocks, tiles, x, n):
     nbr, kb, br, bc = tiles.shape
     _check(name, (br, bc) == (BCSR_BR, BCSR_BC),
            f"tile shape {(br, bc)} (need {(BCSR_BR, BCSR_BC)})")
     _check(name, col_blocks.shape == (nbr, kb)
            and col_blocks.dtype == torch.int32,
            f"col_blocks {tuple(col_blocks.shape)} {col_blocks.dtype}")
-    _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
     _check(name, (tiles.dtype, x.dtype) in _BCSR_PAIRS,
            f"dtypes tiles={tiles.dtype} x={x.dtype}")
     _check(name, n <= nbr * br, f"n={n} > {nbr * br} rows")
     _check(name, all(t.is_contiguous() for t in (col_blocks, tiles, x)),
            "tensors must be contiguous")
+    return nbr, kb
+
+
+def bcsr_spmv(col_blocks, tiles, x, n):
+    """BCSR SpMV (csrc/bcsr.cu on CUDA).  On CUDA x is (m,) and
+    (tiles, x) is one of bf16/bf16, bf16|f32 x bf16|f32, f64/f64."""
+    if _on_cpu(col_blocks, tiles, x):
+        return bcsr_spmv_plain(col_blocks, tiles, x, n)
+    name = "bcsr_spmv"
+    _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
+    nbr, kb = _bcsr_args(name, col_blocks, tiles, x, n)
     lib = load()
     y = torch.empty(n, dtype=torch.promote_types(tiles.dtype, x.dtype),
                     device=x.device)
@@ -225,6 +297,74 @@ def bcsr_spmv(col_blocks, tiles, x, n):
             DTYPE_CODES[tiles.dtype], DTYPE_CODES[x.dtype],
             _ptr(col_blocks), _ptr(tiles), _ptr(x), _ptr(y), nbr, kb, n,
             x.shape[0], _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return y
+
+
+def bcsr_spmv_multirhs(col_blocks, tiles, x, n):
+    """BCSR product with s right-hand sides (csrc/bcsr.cu on CUDA,
+    bcsr_spmv_plain on CPU): x (m, s) row-major, y (n, s); every tile is
+    read once for all s columns.  On CUDA 1 <= s <= 64 and the dtype
+    pairs of bcsr_spmv."""
+    if _on_cpu(col_blocks, tiles, x):
+        return bcsr_spmv_plain(col_blocks, tiles, x, n)
+    name = "bcsr_spmv_multirhs"
+    _check(name, x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS,
+           f"x{tuple(x.shape)} must be (m, s) with 1 <= s <= {MAX_RHS}")
+    nbr, kb = _bcsr_args(name, col_blocks, tiles, x, n)
+    m, s = x.shape
+    lib = load()
+    y = torch.empty((n, s), dtype=torch.promote_types(tiles.dtype, x.dtype),
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.bcsr_spmv_multirhs_launch(
+            DTYPE_CODES[tiles.dtype], DTYPE_CODES[x.dtype],
+            _ptr(col_blocks), _ptr(tiles), _ptr(x), _ptr(y), nbr, kb, n, m,
+            s, _stream(x))
+    _raise_rc(name, rc)
+    LAUNCHES[name] += 1
+    return y
+
+
+# --------------------------------------------------------------------- #
+# ELL SpMV
+# --------------------------------------------------------------------- #
+
+def ell_spmv_plain(indices, values, x):
+    """y[i] = sum_k values[i, k] * x[indices[i, k]] (gather + row
+    reduce, in the promoted dtype as the JAX ell_matvec); x (m,) or
+    (m, s)."""
+    dt = torch.promote_types(values.dtype, x.dtype)
+    g = x.to(dt)[indices]
+    if x.ndim == 2:
+        return torch.einsum("nk,nks->ns", values.to(dt), g)
+    return torch.einsum("nk,nk->n", values.to(dt), g)
+
+
+def ell_spmv(indices, values, x):
+    """ELL SpMV (csrc/ell.cu on CUDA): indices (n, k) int32, values
+    (n, k), x (m,).  On CUDA x is one-dimensional and values and x are
+    both f32 or both f64; the sum accumulates in that dtype."""
+    if _on_cpu(indices, values, x):
+        return ell_spmv_plain(indices, values, x)
+    name = "ell_spmv"
+    n, k = values.shape
+    _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
+    _check(name, indices.shape == (n, k) and indices.dtype == torch.int32,
+           f"indices {tuple(indices.shape)} {indices.dtype}")
+    _check(name, values.dtype == x.dtype
+           and values.dtype in (torch.float32, torch.float64),
+           f"dtypes values={values.dtype} x={x.dtype} (need equal f32 or "
+           "f64)")
+    _check(name, all(t.is_contiguous() for t in (indices, values, x)),
+           "tensors must be contiguous")
+    lib = load()
+    y = torch.empty(n, dtype=values.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.ell_spmv_launch(DTYPE_CODES[values.dtype], _ptr(indices),
+                                 _ptr(values), _ptr(x), _ptr(y), n, k,
+                                 x.shape[0], _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return y

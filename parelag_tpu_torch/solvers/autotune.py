@@ -8,7 +8,7 @@ the Chebyshev branch and the measured `tune_cycle` search come later.
 from parelag_tpu_torch.solvers import smoothers as sm
 
 
-def _factory(cfg, device="cpu"):
+def _factory(cfg, device=None):
     if cfg["smoother"] == "l1jacobi":
         return lambda A, l: sm.make_l1_jacobi(
             A, sweeps=cfg.get("sweeps", 1), device=device)

@@ -17,6 +17,7 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
+from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops.device_sparse import (
     as_torch_dtype, bcsr_stats, dia_n_offsets, from_scipy, to_bcsr,
     to_dia, to_tilecoo)
@@ -50,7 +51,8 @@ class Hierarchy(nn.Module):
         return _cycle(self.levels, 0, b, x, self.mu)
 
     def apply(self, b):
-        """One cycle from a zero guess — the preconditioner."""
+        """One cycle from a zero guess — the preconditioner; b (n,) or
+        (n, s) (s right-hand sides at once)."""
         return self.cycle(b)
 
     def cast(self, dtype):
@@ -77,7 +79,8 @@ def _cycle(levels, l, b, x, mu, x_is_zero=False):
         x = lvl.pre.apply(lvl.A, b, x)
     r = b - lvl.A @ x
     rc = lvl.R @ r
-    ec = torch.zeros(lvl.R.shape[0], dtype=b.dtype, device=b.device)
+    ec = torch.zeros((lvl.R.shape[0],) + tuple(b.shape[1:]),
+                     dtype=b.dtype, device=b.device)
     first = True
     for _ in range(mu):
         ec = _cycle(levels, l + 1, rc, ec, mu, x_is_zero=first)
@@ -88,15 +91,15 @@ def _cycle(levels, l, b, x, mu, x_is_zero=False):
 
 def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
                     mu=1, dtype=np.float64, matrix_format="auto",
-                    transfer_dtype=None, device="cpu") -> Hierarchy:
+                    transfer_dtype=None, device=None) -> Hierarchy:
     """Assemble a device Hierarchy from host sparse matrices.
 
     A_scipy_levels: [A_0, ..., A_L]; P_scipy_levels: [P_0, ..., P_{L-1}];
     smoother_factory(A_scipy, level) -> smoother module.  The transfer
     format keys on the target device as the JAX build_hierarchy keys on
     its backend: ELL on the CPU, BCSR/TileCoo/ELL by structure
-    elsewhere."""
-    device = torch.device(device)
+    elsewhere.  device=None builds on the card."""
+    device = resolve_device(device)
     on_cpu = device.type == "cpu"
 
     def to_dev_transfer(M):

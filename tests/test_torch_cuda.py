@@ -97,4 +97,123 @@ def test_flagship_small_on_card(card):
     rec, _ = fl.lane_h1(16, card, min_coarse=64)
     assert rec["converged"] and rec["levels"] == 3
     assert abs(rec["iters"] - rec["host_iters"]) <= 2
-    assert all(v > 0 for v in rec["kernels"].values()), rec["kernels"]
+    for k in ("dia_spmv", "dia_jacobi_sweep", "bcsr_spmv"):
+        assert rec["kernels"][k] > 0, rec["kernels"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_dia_multirhs_kernels_match_plain(card, dtype, s):
+    n = 50_001
+    D = to_dia(_stencil(n), dtype, card)
+    g = torch.Generator().manual_seed(1)
+    x, b = (torch.randn(n, s, generator=g).to(dtype).to(card)
+            for _ in range(2))
+    dw = torch.randn(n, generator=g).to(dtype).to(card)
+    before = dict(hk.LAUNCHES)
+    y = hk.dia_spmv_multirhs(D.data, D.offs, x, n)
+    w = hk.dia_jacobi_sweep_multirhs(D.data, D.offs, x, b, dw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["dia_spmv_multirhs"] == \
+        before["dia_spmv_multirhs"] + 1
+    assert hk.LAUNCHES["dia_jacobi_sweep_multirhs"] == \
+        before["dia_jacobi_sweep_multirhs"] + 1
+    assert _rel(y, hk.dia_spmv_plain(D.data, D.offs, x, n)) <= LIMIT[dtype]
+    assert _rel(w, hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, dw)) \
+        <= LIMIT[dtype]
+    # column q of the block product is the 1-RHS product of column q
+    y1 = hk.dia_spmv(D.data, D.offs, x[:, s - 1].contiguous(), n)
+    assert _rel(y[:, s - 1], y1) <= LIMIT[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 37])
+@pytest.mark.parametrize("tdt,xdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float64, torch.float64)])
+def test_bcsr_multirhs_kernel_matches_plain(card, tdt, xdt, s):
+    """s = 37 leaves a ragged last chunk of 16 columns."""
+    rng = np.random.RandomState(2)
+    n, m = 20_001, 7_777
+    rows = np.repeat(np.arange(n), 3)
+    cols = (rows * m // n + rng.randint(-300, 300, rows.size)) % m
+    B = to_bcsr(sp.csr_matrix((rng.randn(rows.size), (rows, cols)),
+                              shape=(n, m)), tdt, device=card)
+    x = torch.as_tensor(rng.randn(m, s)).to(xdt).to(card)
+    y = hk.bcsr_spmv_multirhs(B.col_blocks, B.tiles, x, n)
+    torch.cuda.synchronize()
+    assert y.shape == (n, s)
+    assert _rel(y, hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x, n)) \
+        <= LIMIT[y.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_kernel_matches_plain(card, dtype):
+    """Rows not a multiple of the block: the ragged edge is masked."""
+    from parelag_tpu_torch.ops.device_sparse import from_scipy
+    rng = np.random.RandomState(3)
+    A = sp.random(30_001, 9_000, density=8 / 9_000, random_state=rng,
+                  format="csr")
+    E = from_scipy(A, dtype=dtype, device=card)
+    x = torch.as_tensor(rng.randn(9_000)).to(dtype).to(card)
+    before = hk.LAUNCHES["ell_spmv"]
+    y = E @ x
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_spmv"] == before + 1
+    assert _rel(y, hk.ell_spmv_plain(E.indices, E.values, x)) \
+        <= LIMIT[dtype]
+    ref = A @ x.double().cpu().numpy()
+    assert np.abs(y.double().cpu().numpy() - ref).max() \
+        <= LIMIT[dtype] * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_do_not_take(card):
+    from parelag_tpu_torch.ops.device_sparse import from_scipy
+    D = to_dia(_stencil(1000), torch.float32, card)
+    with pytest.raises(ValueError, match="s <= 64"):
+        hk.dia_spmv_multirhs(D.data, D.offs,
+                             torch.ones(1000, 65, device=card), 1000)
+    with pytest.raises(ValueError, match="dtypes"):
+        hk.dia_spmv_multirhs(D.data, D.offs, torch.ones(
+            1000, 2, device=card, dtype=torch.float64), 1000)
+    E = from_scipy(_stencil(1000), dtype=np.float32, device=card)
+    with pytest.raises(ValueError, match="one-dimensional"):
+        E @ torch.ones(1000, 2, device=card)
+    Eb = from_scipy(_stencil(1000), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="dtypes"):
+        Eb @ torch.ones(1000, device=card, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_multirhs_flagship_small_on_card(card):
+    from parelag_tpu_torch import flagship as fl
+    rec, _ = fl.lane_h1(16, card, n_rhs=4, min_coarse=64)
+    mr = rec["multirhs"]
+    assert mr["converged"] and mr["rel_res_max"] <= 1e-4
+    assert mr["col0_rel_diff"] <= 1e-3
+    for k in ("dia_spmv_multirhs", "dia_jacobi_sweep_multirhs",
+              "bcsr_spmv_multirhs"):
+        assert mr["kernels"][k] > 0, mr["kernels"]
+
+
+@pytest.mark.cuda
+def test_maxwell_small_on_card(card):
+    from parelag_tpu_torch import maxwell_lane as ml
+    rec, _ = ml.lane_maxwell(6, card)
+    assert rec["rel_res"] <= 1e-6 or "rel_res_floor" in rec
+    assert rec["kernels"]["ell_spmv"] > 0, rec["kernels"]
+
+
+@pytest.mark.cuda
+def test_zero_gram_eigenvalues_on_card(card):
+    """An exactly-zero f32 Gram batch at the 16^3 chain's batch size:
+    f32 eigvalsh on the card returns NaN for it; the setup's _eigvalsh
+    gives zeros in f32."""
+    from parelag_tpu_torch.amge.structured import _eigvalsh
+    ev = _eigvalsh(torch.zeros((1944, 3, 3), device=card))
+    assert ev.dtype == torch.float32 and ev.is_cuda
+    assert not ev.any()

@@ -56,7 +56,7 @@ def test_dia_spmv_plain_matches_pallas_interpret(dtype):
     yj = np.asarray(dia_spmv_pallas(Aj.data, Aj.offs, xpad, lo, n,
                                     interpret=True)[:n], dtype=np.float64)
     tdt = tds.as_torch_dtype(dtype)
-    At = tds.to_dia(A, dtype=tdt)
+    At = tds.to_dia(A, dtype=tdt, device="cpu")
     assert At.offs == Aj.offs
     yt = At @ torch.as_tensor(x).to(tdt)
     assert yt.dtype == tdt
@@ -84,7 +84,7 @@ def test_dia_jacobi_sweep_plain_matches_pallas_interpret(dtype):
         Aj.data, Aj.offs, xpad, bpad, dpad, lo, n, interpret=True)[:n],
         dtype=np.float64)
     tdt = tds.as_torch_dtype(dtype)
-    At = tds.to_dia(A, dtype=tdt)
+    At = tds.to_dia(A, dtype=tdt, device="cpu")
     xt = At.jacobi_sweeps(torch.as_tensor(b).to(tdt),
                           torch.as_tensor(x0).to(tdt),
                           torch.as_tensor(dinv), 1)
@@ -98,7 +98,7 @@ def test_dia_rectangular_matches_scipy():
     rng = np.random.RandomState(3)
     for n, m in ((300, 420), (420, 300)):
         A = sp.random(n, m, density=0.02, random_state=rng, format="csr")
-        D = tds.to_dia(A, dtype=np.float64)
+        D = tds.to_dia(A, dtype=np.float64, device="cpu")
         x = rng.randn(m)
         assert _rel(_np(D @ torch.as_tensor(x)), A @ x) < 1e-12
         assert D.offs == tuple(int(o) for o in jds.to_dia(A).offs)
@@ -108,7 +108,7 @@ def test_dia_rectangular_matches_scipy():
 def test_dia_table_matches_jax():
     A = _banded(5000, np.float32)
     Aj = jds.to_dia(A, dtype=np.float32)
-    At = tds.to_dia(A, dtype=np.float32)
+    At = tds.to_dia(A, dtype=np.float32, device="cpu")
     np.testing.assert_array_equal(_np(At.data),
                                   np.asarray(Aj.data)[:, :5000])
     np.testing.assert_allclose(tds.l1_row_weights(A),
@@ -128,7 +128,7 @@ def test_bcsr_plain_matches_jax_matvec(shape):
     rng = np.random.RandomState(1)
     A = _random_transfer(rng, *shape)
     Bj = jds.to_bcsr(A, dtype=np.float64)
-    Bt = tds.to_bcsr(A, dtype=np.float64)
+    Bt = tds.to_bcsr(A, dtype=np.float64, device="cpu")
     np.testing.assert_array_equal(Bt.col_blocks.numpy(),
                                   np.asarray(Bj.col_blocks))
     np.testing.assert_array_equal(Bt.tiles.numpy(), np.asarray(Bj.tiles))
@@ -139,7 +139,7 @@ def test_bcsr_plain_matches_jax_matvec(shape):
     assert _rel(_np(Bt @ torch.as_tensor(x)), yj) < 1e-12
     # bf16 tiles with an f32 x (the cycle's P @ ec mix): f32 result,
     # within bf16 rounding of the tiles (2^-8 relative)
-    Btb = tds.to_bcsr(A, dtype=torch.bfloat16)
+    Btb = tds.to_bcsr(A, dtype=torch.bfloat16, device="cpu")
     yb = Btb @ torch.as_tensor(x.astype(np.float32))
     assert yb.dtype == torch.float32
     assert _rel(_np(yb), A @ x) < 1e-2
@@ -164,12 +164,12 @@ def test_tilecoo_and_ell_match_jax():
     A = _random_transfer(rng, 500, 900)
     x = rng.randn(900)
     for jm, tm in ((jds.to_tilecoo(A, dtype=np.float64),
-                    tds.to_tilecoo(A, dtype=np.float64)),
+                    tds.to_tilecoo(A, dtype=np.float64, device="cpu")),
                    (jds.from_scipy(A, dtype=np.float64),
-                    tds.from_scipy(A, dtype=np.float64))):
+                    tds.from_scipy(A, dtype=np.float64, device="cpu"))):
         assert _rel(_np(tm @ torch.as_tensor(x)),
                     np.asarray(jm @ jnp.asarray(x))) < 1e-12
-    T = tds.to_tilecoo(A, dtype=torch.bfloat16)
+    T = tds.to_tilecoo(A, dtype=torch.bfloat16, device="cpu")
     assert T.dtype == torch.bfloat16
     assert (T @ torch.as_tensor(x).to(torch.bfloat16)).dtype == \
         torch.bfloat16
@@ -177,8 +177,8 @@ def test_tilecoo_and_ell_match_jax():
 
 def test_formats_cast_floating_buffers_only():
     A = _random_transfer(np.random.RandomState(4), 64, 300)
-    for M in (tds.to_bcsr(A), tds.to_tilecoo(A), tds.from_scipy(A),
-              tds.to_dia(A)):
+    for M in (tds.to_bcsr(A, device="cpu"), tds.to_tilecoo(A, device="cpu"),
+              tds.from_scipy(A, device="cpu"), tds.to_dia(A, device="cpu")):
         Mb = M.to(torch.bfloat16)
         assert Mb.dtype == torch.bfloat16
         for name, buf in Mb.named_buffers():

@@ -30,7 +30,8 @@ def _sprel(A, B):
 def test_operators_match_jax_bench_f64():
     Aj, Pj, bj = bench._build_h1_structured(NX, MIN_COARSE,
                                             dtype=np.float64)
-    At, Pt, bt = fl.build_h1_structured(NX, MIN_COARSE, dtype=np.float64)
+    At, Pt, bt = fl.build_h1_structured(NX, MIN_COARSE, dtype=np.float64,
+                                        device="cpu")
     assert [a.shape for a in At] == [(17 ** 3,) * 2, (9 ** 3,) * 2,
                                      (5 ** 3,) * 2]
     assert [a.shape for a in At] == [a.shape for a in Aj]
@@ -59,7 +60,7 @@ def test_pcg_iterations_match_jax_lane_f32():
 
     _, (itj, _) = jsolve(jnp.asarray(bj.astype(np.float32)))
 
-    At, Pt, bt = fl.build_h1_structured(NX, MIN_COARSE)
+    At, Pt, bt = fl.build_h1_structured(NX, MIN_COARSE, device="cpu")
     H, Hb = fl.build_solver(At, Pt, "cpu")
     assert [type(l.A).__name__ for l in H.levels] == ["DiaMatrix"] * 3
     assert Hb.levels[-1].coarse_inv.dtype == torch.float32
@@ -75,7 +76,7 @@ def test_pcg_iterations_match_jax_lane_f32():
 
 def test_host_anchor_matches_bench():
     At, Pt, bt = fl.build_h1_structured(8, min_coarse=8,
-                                        dtype=np.float64)
+                                        dtype=np.float64, device="cpu")
     xj, itj = bench._host_vcycle_pcg(At, Pt, bt, rtol=1e-8)
     xt, itt = fl.host_vcycle_pcg(At, Pt, bt, rtol=1e-8)
     assert itt == itj

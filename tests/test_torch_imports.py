@@ -53,7 +53,8 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     monkeypatch.setattr(build, "load", refuse)
     monkeypatch.setattr(hk, "_LIB", None)
     before = dict(hk.LAUNCHES)
-    A_levels, P_levels, b = fl.build_h1_structured(8, min_coarse=8)
+    A_levels, P_levels, b = fl.build_h1_structured(8, min_coarse=8,
+                                                   device="cpu")
     H, Hb = fl.build_solver(A_levels, P_levels, "cpu")
     x, (it, _) = fl.solve(H, Hb, torch.as_tensor(b.astype(np.float32)))
     assert it > 0 and torch.isfinite(x).all()
@@ -85,3 +86,52 @@ def test_device_helper_never_falls_back_to_the_cpu():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             device()
+
+
+def _entry_points():
+    """Every public entry point with a device argument, called without
+    one, on tiny inputs (name -> thunk)."""
+    import scipy.sparse as sp
+    from parelag_tpu_torch import convert, flagship, maxwell_lane
+    from parelag_tpu_torch.amge import structured
+    from parelag_tpu_torch.ops import device_sparse as ds
+    from parelag_tpu_torch.solvers import autotune, hierarchy, smoothers
+    I = sp.identity(8, format="csr")
+    D = sp.csr_matrix(np.ones((8, 2)))
+    return {
+        "flagship.structured_chain":
+            lambda: flagship.structured_chain(4, min_coarse=8),
+        "flagship.build_h1_structured":
+            lambda: flagship.build_h1_structured(4, min_coarse=8),
+        "flagship.build_solver": lambda: flagship.build_solver([I], []),
+        "flagship.lane_h1": lambda: flagship.lane_h1(4),
+        "maxwell_lane.build_maxwell": lambda: maxwell_lane.build_maxwell(2),
+        "maxwell_lane.build_solver":
+            lambda: maxwell_lane.build_solver([I], [], []),
+        "maxwell_lane.lane_maxwell": lambda: maxwell_lane.lane_maxwell(2),
+        "structured.fine_level": lambda: structured.fine_level((2, 2, 2)),
+        "hierarchy.build_hierarchy": lambda: hierarchy.build_hierarchy(
+            [I], [], autotune._factory(flagship.CYCLE, "cpu")),
+        "smoothers.make_l1_jacobi": lambda: smoothers.make_l1_jacobi(I),
+        "smoothers.make_hiptmair": lambda: smoothers.make_hiptmair(I, D),
+        "autotune._factory":
+            lambda: autotune._factory(flagship.CYCLE)(I, 0),
+        "convert.hierarchy_from_numpy":
+            lambda: convert.hierarchy_from_numpy(object()),
+        "convert.structured_level_from_numpy":
+            lambda: convert.structured_level_from_numpy(object()),
+        "device_sparse.from_scipy": lambda: ds.from_scipy(I),
+        "device_sparse.to_bcsr": lambda: ds.to_bcsr(I),
+        "device_sparse.to_tilecoo": lambda: ds.to_tilecoo(I),
+        "device_sparse.to_dia": lambda: ds.to_dia(I),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_defaults_to_the_card(name):
+    """device=None means the card: without one, a call that names no
+    device raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()

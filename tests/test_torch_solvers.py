@@ -64,14 +64,15 @@ def test_cycle_f64_matches_jax(chain, fmt):
     Hj = jh.build_hierarchy(A_levels, P_levels, jfactory(CFG),
                             dtype=np.float64, matrix_format=fmt)
     Ht = convert.hierarchy_from_numpy(
-        jax.tree_util.tree_map(np.asarray, Hj))
+        jax.tree_util.tree_map(np.asarray, Hj), device="cpu")
     r = np.random.RandomState(0).randn(A_levels[0].shape[0])
     yj = np.asarray(Hj.apply(jnp.asarray(r)))
     yt = Ht.apply(torch.as_tensor(r)).numpy()
     assert _rel(yt, yj) < 1e-10
     # the port's own build_hierarchy gives the same hierarchy
-    Hb = th.build_hierarchy(A_levels, P_levels, tfactory(CFG),
-                            dtype=np.float64, matrix_format=fmt)
+    Hb = th.build_hierarchy(A_levels, P_levels, tfactory(CFG, "cpu"),
+                            dtype=np.float64, matrix_format=fmt,
+                            device="cpu")
     assert [type(l.A).__name__ for l in Hb.levels] == \
         [type(l.A).__name__ for l in Hj.levels]
     assert [type(l.P).__name__ for l in Hb.levels] == \
@@ -88,7 +89,7 @@ def test_bf16_cast_cycle(chain):
     Hj = jh.build_hierarchy(A_levels, P_levels, jfactory(CFG),
                             dtype=np.float64, matrix_format="dia")
     Ht = convert.hierarchy_from_numpy(
-        jax.tree_util.tree_map(np.asarray, Hj))
+        jax.tree_util.tree_map(np.asarray, Hj), device="cpu")
     Htb = Ht.cast(torch.bfloat16)
     assert Htb.levels[-1].coarse_inv.dtype == torch.float64
     assert Htb.levels[0].A.dtype == torch.bfloat16
@@ -112,7 +113,7 @@ def test_pcg_matches_jax(chain):
     Hj = jh.build_hierarchy(A_levels, P_levels, jfactory(CFG),
                             dtype=np.float64, matrix_format="dia")
     Ht = convert.hierarchy_from_numpy(
-        jax.tree_util.tree_map(np.asarray, Hj))
+        jax.tree_util.tree_map(np.asarray, Hj), device="cpu")
     b = np.random.RandomState(2).randn(A_levels[0].shape[0])
     xj, (itj, _) = jax.jit(lambda bb: jpcg(
         lambda v: Hj.levels[0].A @ v, bb, precond=Hj.apply, rtol=1e-8,
@@ -137,9 +138,9 @@ def test_smoother_matches_jax(chain, fmt):
                             matrix_format=fmt)
     Ajm = Hj.levels[0].A
     Atm = convert.hierarchy_from_numpy(
-        jax.tree_util.tree_map(np.asarray, Hj)).levels[0].A
+        jax.tree_util.tree_map(np.asarray, Hj), device="cpu").levels[0].A
     sj = jsm.make_l1_jacobi(A, sweeps=2, omega=0.8)
-    st = tsm.make_l1_jacobi(A, sweeps=2, omega=0.8)
+    st = tsm.make_l1_jacobi(A, sweeps=2, omega=0.8, device="cpu")
     rng = np.random.RandomState(4)
     b, x0 = rng.randn(A.shape[0]), rng.randn(A.shape[0])
     assert _rel(st.apply(Atm, torch.as_tensor(b), torch.as_tensor(x0)),
@@ -153,9 +154,9 @@ def test_transfer_format_keys_on_device(chain):
     other device gets the BCSR/TileCoo choice from bcsr_stats.  The
     'meta' device stands in for the card here: it allocates nothing."""
     A_levels, P_levels = chain
-    Hc = th.build_hierarchy(A_levels, P_levels, tfactory(CFG),
+    Hc = th.build_hierarchy(A_levels, P_levels, tfactory(CFG, "cpu"),
                             dtype=np.float32, matrix_format="dia",
-                            transfer_dtype=torch.bfloat16)
+                            transfer_dtype=torch.bfloat16, device="cpu")
     assert {type(l.P).__name__ for l in Hc.levels[:-1]} == {"EllMatrix"}
     Hm = th.build_hierarchy(A_levels, P_levels, tfactory(CFG, "meta"),
                             dtype=np.float32, matrix_format="dia",
@@ -170,7 +171,7 @@ def test_coarse_guard_and_rap():
     n = 16385
     A = sp.identity(n, format="csr")
     with pytest.raises(RuntimeError, match="too large"):
-        th.build_hierarchy([A], [], tfactory(CFG))
+        th.build_hierarchy([A], [], tfactory(CFG, "cpu"), device="cpu")
     rng = np.random.RandomState(5)
     A = sp.random(60, 60, density=0.1, random_state=rng)
     A = (A + A.T).tocsr()

@@ -37,7 +37,7 @@ def _sprel(A, B):
 def chains(request):
     shape = (request.param,) * 3
     jl, jo = jst.coarsen_chain(jst.fine_level(shape), 3, jform_start=0)
-    tl, to = tst.coarsen_chain(tst.fine_level(shape), 3)
+    tl, to = tst.coarsen_chain(tst.fine_level(shape, device="cpu"), 3)
     return (jl, jo), (tl, to)
 
 
@@ -71,7 +71,7 @@ def test_P_and_A_per_level_match_jax(chains):
 def test_chunk_loop_equals_whole_level():
     """chunk=7 misaligns with every entity count (ragged last chunk);
     the stage math is per entity, so the results are bit-identical."""
-    lvl0 = tst.fine_level((8, 8, 8))
+    lvl0 = tst.fine_level((8, 8, 8), device="cpu")
     cw, ow = tst.coarsen_structured(lvl0, chunk=0)
     cc, oc = tst.coarsen_structured(lvl0, chunk=7)
     for f in OUT_FIELDS:
@@ -86,7 +86,8 @@ def test_f32_chain_matches_jax():
     separate LU factorizations of 21x21 saddle blocks in f32)."""
     shape = (8, 8, 8)
     jl, jo = jst.coarsen_chain(jst.fine_level(shape, dtype=np.float32), 2)
-    tl, to = tst.coarsen_chain(tst.fine_level(shape, dtype=np.float32), 2)
+    tl, to = tst.coarsen_chain(tst.fine_level(shape, dtype=np.float32,
+                                                 device="cpu"), 2)
     assert to[0].pc0.dtype == torch.float32
     for f in OUT_FIELDS:
         assert _rel(getattr(to[0], f).numpy(), getattr(jo[0], f)) < 1e-5, f
@@ -99,9 +100,9 @@ def test_level_from_numpy_and_heterogeneity_guard():
     shape = (4, 4, 4)
     lj = jax.tree_util.tree_map(np.asarray, vars(jst.fine_level(shape)))
     lvl = convert.structured_level_from_numpy(
-        jst.StructuredLevel(**lj))
+        jst.StructuredLevel(**lj), device="cpu")
     _, oa = tst.coarsen_structured(lvl)
-    _, ob = tst.coarsen_structured(tst.fine_level(shape))
+    _, ob = tst.coarsen_structured(tst.fine_level(shape, device="cpu"))
     for f in OUT_FIELDS:
         assert _rel(getattr(oa, f).numpy(), getattr(ob, f).numpy()) < TOL
     rng = np.random.default_rng(9)
@@ -110,7 +111,7 @@ def test_level_from_numpy_and_heterogeneity_guard():
         np.asarray, vars(jst.fine_level(shape, coeff=coeff)))
     with pytest.raises(RuntimeError, match="bubble SVD kept a mode"):
         tst.coarsen_structured(convert.structured_level_from_numpy(
-            jst.StructuredLevel(**het)))
+            jst.StructuredLevel(**het), device="cpu"))
 
 
 def test_full_precision_restores_flags():
@@ -119,3 +120,19 @@ def test_full_precision_restores_flags():
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cuda.matmul.allow_tf32 == prev
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eigvalsh_in_f64_keeps_the_dtype(dtype):
+    """The guards' Gram eigenvalues: computed in f64, returned in G's
+    dtype; an exactly-zero batch (the deflated trace of a homogeneous
+    level) gives zeros, a random SPD batch numpy's eigenvalues."""
+    zeros = tst._eigvalsh(torch.zeros((5, 3, 3), dtype=dtype))
+    assert zeros.dtype == dtype and not zeros.any()
+    a = np.random.RandomState(0).randn(5, 3, 3)
+    g = a @ a.transpose(0, 2, 1)
+    ev = tst._eigvalsh(torch.as_tensor(g, dtype=dtype))
+    assert ev.dtype == dtype
+    np.testing.assert_allclose(ev.double().numpy(), np.linalg.eigvalsh(g),
+                               rtol=1e-6 if dtype == torch.float32
+                               else 1e-12)
