@@ -226,15 +226,18 @@ def _dia_rows(rows, A0, dev, rng):
 
 
 def _bcsr_rows(rows, cases, dev, rng):
-    """bcsr_spmv on each (label, M, tile dtype, x dtypes, multi) case,
-    and bcsr_spmv_multirhs with N_RHS columns where multi is set."""
+    """bcsr_spmv on each (label, M, values dtype, x dtypes, multi) case,
+    and bcsr_spmv_multirhs with N_RHS columns where multi is set.  The
+    BcsrMatrix streams its nonzeros and row pointers (format_bytes), so
+    format_bytes and the bound's bytes differ only by explicit zeros."""
     for label, M, tdt, xdts, multi in cases:
         B = to_bcsr(M, tdt, device=dev)
-        nbr, kb = B.col_blocks.shape
         n, m = M.shape
         csr = _csr(M, tdt, dev)
         nnz = int(M.count_nonzero())
-        mat = _csr_bytes(M, B.tiles.element_size())
+        mat = _csr_bytes(M, B.values.element_size())
+        fmt = _nbytes(B.row_ptr, B.col_idx, B.values)
+        args = (B.row_ptr, B.col_idx, B.values)
         xs = torch.as_tensor(rng.randn(m).astype(np.float32)).to(dev)
         Xs = torch.as_tensor(rng.randn(m, N_RHS).astype(np.float32)
                              ).to(dev)
@@ -242,26 +245,26 @@ def _bcsr_rows(rows, cases, dev, rng):
             x, X = xs.to(xdt), Xs.to(xdt)
             y_bytes = n * torch.empty((), dtype=torch.promote_types(
                 tdt, xdt)).element_size()
-            tag = (f"{label} {_TAG[tdt]} tiles {_TAG[xdt]} x {n}x{m} "
-                   f"nbr={nbr} kb={kb}")
+            tag = (f"{label} {_TAG[tdt]} values {_TAG[xdt]} x {n}x{m} "
+                   f"nnz={nnz} group={B.group}")
             same = xdt == tdt    # the library call takes one dtype
             note = "torch's CSR product takes one dtype for M and x"
             rows["bcsr_spmv"].append(_compare(
                 "bcsr_spmv", tag,
-                lambda: hk.bcsr_spmv(B.col_blocks, B.tiles, x, n),
-                lambda: hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x, n),
+                lambda: hk.bcsr_spmv(*args, x, n),
+                lambda: hk.bcsr_spmv_plain(*args, x, n),
                 mat + _nbytes(x) + y_bytes, 2 * nnz,
-                _nbytes(B.col_blocks, B.tiles, x) + y_bytes,
+                fmt + _nbytes(x) + y_bytes,
                 (lambda: csr @ x) if same else None,
                 None if same else note))
             if not multi:
                 continue
             rows["bcsr_spmv_multirhs"].append(_compare(
                 "bcsr_spmv_multirhs", f"{tag} s={N_RHS}",
-                lambda: hk.bcsr_spmv_multirhs(B.col_blocks, B.tiles, X, n),
-                lambda: hk.bcsr_spmv_plain(B.col_blocks, B.tiles, X, n),
+                lambda: hk.bcsr_spmv_multirhs(*args, X, n),
+                lambda: hk.bcsr_spmv_plain(*args, X, n),
                 mat + _nbytes(X) + y_bytes * N_RHS, 2 * nnz * N_RHS,
-                _nbytes(B.col_blocks, B.tiles, X) + y_bytes * N_RHS,
+                fmt + _nbytes(X) + y_bytes * N_RHS,
                 (lambda: csr @ X) if same else None,
                 None if same else note))
         del B, csr
@@ -298,7 +301,7 @@ def kernel_phase(A0, P0, maxwell, dev):
     bf16, f32 = torch.bfloat16, torch.float32
     _bcsr_rows(rows, [
         ("P0", P0, bf16, (bf16, f32), True),
-        ("R0", P0.T.tocsr(), bf16, (bf16,), False),
+        ("R0", P0.T.tocsr(), bf16, (bf16,), True),
         ("Maxwell A0", A_levels[0], f32, (f32,), False),
         ("Maxwell P0", P_levels[0], f32, (f32,), False),
         ("Maxwell R0", P_levels[0].T.tocsr(), f32, (f32,), False)],

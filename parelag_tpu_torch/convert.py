@@ -38,8 +38,10 @@ def _matrix(M, device):
         return DiaMatrix(_tensor(np.asarray(M.data)[:, :n], device),
                          M.offs, M.shape)
     if name == "BcsrMatrix":
-        return BcsrMatrix(_tensor(M.col_blocks, device),
-                          _tensor(M.tiles, device), M.shape, M.padded)
+        # the port keeps the tiles' nonzeros, not the tiles
+        return BcsrMatrix.from_tiles(_tensor(M.col_blocks, device),
+                                     _tensor(M.tiles, device), M.shape,
+                                     M.padded)
     if name == "TileCooMatrix":
         return TileCooMatrix(_tensor(M.row_blocks, device),
                              _tensor(M.col_blocks, device),

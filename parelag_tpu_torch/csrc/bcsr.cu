@@ -1,245 +1,368 @@
-// BCSR SpMV over 8 x 128 tiles, for one right-hand side and for s of
-// them.
+// Row-compressed SpMV of the BcsrMatrix format, for one right-hand side
+// and for s of them.
 //
-// Replaces parelag_tpu/ops/pallas_kernels.py::bcsr_spmv_pallas (on the
-// TPU the same product ran as XLA, ops/device_sparse.py
-// BcsrMatrix.matvec).  Layout: col_blocks (nbr, kb) int32 and tiles
-// (nbr, kb, 8, 128); y[8 rb + r] = sum_k sum_c tiles[rb, k, r, c]
-// * x[128 col_blocks[rb, k] + c].  It carries the P/R transfers of the
-// V-cycle (bf16 tiles, bf16 or f32 x) and any coarse operator past the
-// DIA offset limit.
+// Replaces parelag_tpu/ops/pallas_kernels.py::bcsr_spmv_pallas and, for
+// (m, s) inputs, the XLA einsum of the JAX BcsrMatrix.matvec
+// (parelag_tpu/ops/device_sparse.py).  Both computed y = A x over 8 x 128
+// dense tiles, the TPU's shape.  On the V-cycle's transfers those tiles
+// are 1-3 % full (P0 of the 96^3 flagship: 6.7 nonzeros per 1,024
+// slots), and a product does 2 operations for every ~6 bytes it must
+// read, far below the point where tensor cores would matter.  So the only
+// lever on this card is bytes, and the port's BcsrMatrix keeps just the
+// nonzeros in row order: row_ptr (n + 1) int32, col_idx (nnz) int32 and
+// values (nnz).  A product reads each nonzero once (value + column), x
+// from L2 (every main-path x fits in the 50 MB L2), and writes y once.
 //
-// Design: one 128-thread block per row block, thread c owns column c of
-// every tile of the row block.  Each (k, r) tile row is one coalesced
-// 128-element read, the x element is read once per tile and reused for
-// its 8 rows, and the 8 per-row partial sums reduce across the block
-// (warp shuffles, then 4 warps through shared memory).  x is read with a
-// bounds check, so no padded copy of x is made.
-//
-// Bound on Hopper: device-memory bytes.  The tile stream (nbr * kb * 1024
-// elements) dominates; the padding slots of short row blocks are zero
-// tiles that are still read, as in the TPU layout.  Accumulation is f32
-// (f64 for f64 operands); the result is stored in the promoted type of
-// tiles and x, as BcsrMatrix.matvec gives.
+// Bound on Hopper: device-memory bytes, nnz * (value + 4) + 4 (n + 1)
+// for the matrix plus x and y.  Sums accumulate in f32 (f64 for f64
+// operands) and are stored in the promoted type of values and x, as
+// BcsrMatrix.matvec gives.  A column index outside [0, m) reads 0, as the
+// tile kernel's bounds check did.
 
 #include "common.cuh"
 
-static const int kCols = 128;  // threads per block == tile width
-static const int kRows = 8;    // tile height
-static const int kWarps = kCols / 32;
+static const int kThreads = 256;
 
-template <typename A>
-__device__ __forceinline__ A warp_sum(A v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
+// ---------------------------------------------------------------------
+// Element and 16-byte loads through the read-only path, widened to the
+// accumulator type, and the matching narrowing stores.
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double ldg1(const double* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __uint_as_float((unsigned)u << 16);
 }
 
-template <typename TT, typename TX, typename TY, typename A>
-__global__ void __launch_bounds__(kCols)
-bcsr_spmv_kernel(const int* __restrict__ col_blocks,
-                 const TT* __restrict__ tiles, const TX* __restrict__ x,
-                 TY* __restrict__ y, int kb, int n, int m) {
-    const int rb = blockIdx.x;
-    const int c = threadIdx.x;
-    const int* cb = col_blocks + (long long)rb * kb;
-    const TT* t = tiles + (long long)rb * kb * (kRows * kCols);
-    A acc[kRows];
+template <typename T, typename A>
+__device__ __forceinline__ void ldg_cols(const T* p, A (&v)[1]) {
+    v[0] = A(ldg1(p));
+}
+__device__ __forceinline__ void ldg_cols(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void ldg_cols(const double* p, double (&v)[2]) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x; v[1] = q.y;
+}
+__device__ __forceinline__ void ldg_cols(const __nv_bfloat16* p,
+                                         float (&v)[8]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = A(0);
-    for (int k = 0; k < kb; ++k) {
-        const long long col = (long long)cb[k] * kCols + c;
-        const A xv = (col >= 0 && col < m) ? A(widen(x[col])) : A(0);
-        const TT* tk = t + (long long)k * (kRows * kCols) + c;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] += A(widen(tk[r * kCols])) * xv;
-    }
-    __shared__ A part[kRows][kWarps];
-    const int warp = c >> 5, lane = c & 31;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-        const A v = warp_sum(acc[r]);
-        if (lane == 0) part[r][warp] = v;
-    }
-    __syncthreads();
-    if (c < kRows) {
-        A s = A(0);
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += part[c][w];
-        const long long row = (long long)rb * kRows + c;
-        if (row < n) narrow(y + row, s);
+    for (int k = 0; k < 4; ++k) {       // low half = first element
+        v[2 * k] = __uint_as_float(w[k] << 16);
+        v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
     }
 }
 
-template <typename TT, typename TX, typename TY, typename A>
-static int launch(const void* cb, const void* tiles, const void* x, void* y,
-                  int nbr, int kb, int n, int m, cudaStream_t s) {
-    bcsr_spmv_kernel<TT, TX, TY, A><<<nbr, kCols, 0, s>>>(
-        (const int*)cb, (const TT*)tiles, (const TX*)x, (TY*)y, kb, n, m);
+template <typename T, typename A>
+__device__ __forceinline__ void st_cols(T* p, const A (&v)[1]) {
+    narrow(p, v[0]);
+}
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st_cols(float* p, const float (&v)[8]) {
+    float4* q = reinterpret_cast<float4*>(p);
+    q[0] = make_float4(v[0], v[1], v[2], v[3]);
+    q[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void st_cols(double* p, const double (&v)[2]) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void st_cols(__nv_bfloat16* p,
+                                        const float (&v)[8]) {
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        w[k] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+static int log2i(int v) {
+    int l = 0;
+    while ((1 << l) < v) ++l;
+    return l;
+}
+
+static bool pow2_in(int v, int lo, int hi) {
+    return v >= lo && v <= hi && (v & (v - 1)) == 0;
+}
+
+// Rows per group, R.  The product is latency-bound before it is
+// bytes-bound when a lane's only work is one chain of dependent loads
+// (row_ptr, then col_idx and values, then x): with one row per group P0
+// moved 1.43 TB/s at full occupancy.  So a group takes R = kRows
+// consecutive rows and issues the loads of all of them before it uses
+// any, R times the bytes in flight per lane (P0 in bf16, device us per
+// launch on an H100 80GB HBM3 at 700 W: 17.5 at R = 1, 12.9 at 2, 11.7
+// at 4, 12.4 at 8).  A product whose threads at R = 1 fit in one wave of
+// the card (kWave) takes R = 1: its latency is one chain either way, and
+// R > 1 would only serialise the long rows.
+static const int kRows = 4;
+static const long long kWave = 132LL * 2048;   // SMs x resident threads
+
+static int rows_per_group(long long threads_at_one_row) {
+    return threads_at_one_row <= kWave ? 1 : kRows;
+}
+
+// row_ptr of the R rows from r0 (rows past n are empty)
+template <int R>
+__device__ __forceinline__ void load_rows(const int* __restrict__ row_ptr,
+                                          long long r0, int n,
+                                          int (&rp)[R + 1]) {
+#pragma unroll
+    for (int i = 0; i <= R; ++i)
+        rp[i] = row_ptr[r0 + i < n ? r0 + i : n];
+}
+
+// ---------------------------------------------------------------------
+// One right-hand side: vector CSR with sub-warp groups.  A group of G
+// lanes (G a power of two from 2 to 32; the wrapper takes the one that
+// covers the mean nonzeros per row, at most 16: P0 ~3.3 -> 4, R0 ~26 ->
+// 16, which took 9.8 us against 13.3 at G = 32) owns R consecutive rows,
+// one after the other; its lanes stride over each row's nonzeros, so the
+// groups of a warp read one contiguous run of col_idx and values.  The first G nonzeros of every row are loaded
+// together (most rows have no more), the rest by a loop.  Each row's
+// partial sums meet by xor shuffles inside the group, and lane i % G
+// stores row i.  No shared memory: each byte is used once.
+
+template <typename TV, typename TX, typename TY, typename A, int R>
+__global__ void __launch_bounds__(kThreads)
+bcsr_row_spmv_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ col_idx,
+                     const TV* __restrict__ vals, const TX* __restrict__ x,
+                     TY* __restrict__ y, int n, int m, int lg) {
+    const int G = 1 << lg;
+    const long long r0 = (((long long)blockIdx.x * kThreads + threadIdx.x)
+                          >> lg) * R;
+    const int lane = threadIdx.x & (G - 1);
+    int rp[R + 1];
+    load_rows<R>(row_ptr, r0, n, rp);   // the lanes past n still shuffle
+    int c[R];
+    A v[R], acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        const int j = rp[i] + lane;
+        c[i] = j < rp[i + 1] ? col_idx[j] : -1;
+        v[i] = j < rp[i + 1] ? A(widen(vals[j])) : A(0);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+        acc[i] = (unsigned)c[i] < (unsigned)m ? v[i] * A(ldg1(x + c[i]))
+                                              : A(0);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        for (int j = rp[i] + lane + G; j < rp[i + 1]; j += G) {
+            const int cj = col_idx[j];
+            if ((unsigned)cj < (unsigned)m)
+                acc[i] += A(widen(vals[j])) * A(ldg1(x + cj));
+        }
+        for (int o = G >> 1; o > 0; o >>= 1)
+            acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+        if (r0 + i < n && lane == (i & (G - 1))) narrow(y + r0 + i, acc[i]);
+    }
+}
+
+template <typename TV, typename TX, typename TY, typename A>
+static int launch(const void* rp, const void* ci, const void* v,
+                  const void* x, void* y, int n, int m, int g,
+                  cudaStream_t s) {
+    const int lg = log2i(g);
+    const int r = rows_per_group((long long)n << lg);
+    const long long threads = ((long long)n + r - 1) / r << lg;
+    const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+    if (r == 1)
+        bcsr_row_spmv_kernel<TV, TX, TY, A, 1><<<blocks, kThreads, 0, s>>>(
+            (const int*)rp, (const int*)ci, (const TV*)v, (const TX*)x,
+            (TY*)y, n, m, lg);
+    else
+        bcsr_row_spmv_kernel<TV, TX, TY, A, kRows>
+            <<<blocks, kThreads, 0, s>>>((const int*)rp, (const int*)ci,
+                                         (const TV*)v, (const TX*)x, (TY*)y,
+                                         n, m, lg);
     return (int)cudaGetLastError();
 }
 
-// Supported (tiles, x) -> y: (bf16, bf16) -> bf16; (bf16 | f32, bf16 |
-// f32) otherwise -> f32; (f64, f64) -> f64.
-extern "C" int bcsr_spmv_launch(int tdt, int xdt, const void* col_blocks,
-                                const void* tiles, const void* x, void* y,
-                                int nbr, int kb, int n, int m,
+// Supported (values, x) -> y: (bf16, bf16) -> bf16; (bf16 | f32, bf16 |
+// f32) otherwise -> f32; (f64, f64) -> f64.  g: lanes per row.
+extern "C" int bcsr_spmv_launch(int vdt, int xdt, const void* row_ptr,
+                                const void* col_idx, const void* vals,
+                                const void* x, void* y, int n, int m, int g,
                                 void* stream) {
-    if (nbr < 0 || kb < 1 || n < 0 || m < 0 || n > nbr * kRows)
+    if (n < 0 || m < 0 || !pow2_in(g, 2, 32))
         return (int)cudaErrorInvalidValue;
-    if (nbr == 0 || n == 0) return 0;
+    if (n == 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     typedef __nv_bfloat16 bf16;
-    if (tdt == DT_BF16 && xdt == DT_BF16)
-        return launch<bf16, bf16, bf16, float>(col_blocks, tiles, x, y, nbr,
-                                               kb, n, m, s);
-    if (tdt == DT_BF16 && xdt == DT_F32)
-        return launch<bf16, float, float, float>(col_blocks, tiles, x, y,
-                                                 nbr, kb, n, m, s);
-    if (tdt == DT_F32 && xdt == DT_BF16)
-        return launch<float, bf16, float, float>(col_blocks, tiles, x, y,
-                                                 nbr, kb, n, m, s);
-    if (tdt == DT_F32 && xdt == DT_F32)
-        return launch<float, float, float, float>(col_blocks, tiles, x, y,
-                                                  nbr, kb, n, m, s);
-    if (tdt == DT_F64 && xdt == DT_F64)
-        return launch<double, double, double, double>(col_blocks, tiles, x,
-                                                      y, nbr, kb, n, m, s);
+    if (vdt == DT_BF16 && xdt == DT_BF16)
+        return launch<bf16, bf16, bf16, float>(row_ptr, col_idx, vals, x, y,
+                                               n, m, g, s);
+    if (vdt == DT_BF16 && xdt == DT_F32)
+        return launch<bf16, float, float, float>(row_ptr, col_idx, vals, x,
+                                                 y, n, m, g, s);
+    if (vdt == DT_F32 && xdt == DT_BF16)
+        return launch<float, bf16, float, float>(row_ptr, col_idx, vals, x,
+                                                 y, n, m, g, s);
+    if (vdt == DT_F32 && xdt == DT_F32)
+        return launch<float, float, float, float>(row_ptr, col_idx, vals, x,
+                                                  y, n, m, g, s);
+    if (vdt == DT_F64 && xdt == DT_F64)
+        return launch<double, double, double, double>(row_ptr, col_idx, vals,
+                                                      x, y, n, m, g, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------
-// s right-hand sides: Y (n, s) = BCSR @ X (m, s), both row-major.
+// s right-hand sides: Y (n, s) = A @ X (m, s), both row-major, s <= 64.
 //
-// No Pallas kernel: the JAX package computed this as an XLA einsum over
-// the gathered (nbr, kb, 128, s) operand (ops/device_sparse.py
-// BcsrMatrix.matvec), 3.7 GB per apply of P0 at 96^3 with s = 16.  Here
-// one 128-thread block per row block streams each tile once for all s
-// columns.  Thread c loads column c of the tile (8 coalesced rows) and a
-// warp ballot lists which of the warp's 32 columns hold a nonzero: the
-// transfers' tiles are ~1 % full (P0 at 96^3: 6.7 nonzeros in 1,024
-// slots), so the work follows the nonzero columns, not the slots.  The
-// warp walks its listed columns together: lane l owns output column
-// q = 16 ch + l % 16 of rows 4 (l / 16) .. 4 (l / 16) + 3, takes the
-// column's 8 tile values from the owning lane by shuffles and reads
-// X[128 cb + c, q] (the 16 lanes of a half-warp read one contiguous run,
-// and both halves the same addresses).  The four warps' partial sums meet
-// in shared memory at the end.  Bound: bytes, the tile stream as for one
-// column, plus the X rows the nonzeros touch and the (n, s) output.
-// s <= 64: four chunks of 16 columns, four rows each, in registers.
+// A group of L lanes owns R consecutive rows (as above) and covers a
+// row's s columns in chunks of W: W = 16 bytes of X (4 f32, 8 bf16, 2
+// f64) when s is a multiple of it and X and Y are 16-byte aligned, else
+// W = 1 (then a lane takes up to two chunks, so s <= 64 fits in 32
+// lanes).  L is the power of two that covers the chunks, up to 32.  Each
+// lane walks all of a row's nonzeros: their columns and values are read
+// once per group (its L lanes read the same address: one broadcast), and
+// each nonzero costs the lane one 16-byte load of its slice of X[col, :].
+// The first nonzero of all R rows is loaded together; the lanes store Y's
+// row slice in 16-byte pieces.  Splitting a row's nonzeros over K lane
+// groups, as the 1-RHS kernel does, costs a K-way shuffle reduction of
+// all W sums of a lane, and lost at every K tried (H100 80GB HBM3, 700 W,
+// device us per launch, s = 16 in bf16: P0 ~3.3 nonzeros per row 32.0 /
+// 35.8 / 55.2 at K = 1 / 2 / 4, R0 ~26 per row 28.1 / 44.0 / 51.6 at K =
+// 1 / 4 / 16).  P0 at s = 16 in bf16: L = 2, sixteen groups per warp.
+// Bound: bytes, the nonzeros once plus X's touched rows and Y.
 
-static const int kRhsChunk = 16;              // columns per chunk
-static const int kMaxChunks = 4;              // s <= 64
-static const int kLaneRows = kRows / 2;       // rows per lane
-
-template <typename TT, typename TX, typename TY, typename A>
-__global__ void __launch_bounds__(kCols)
-bcsr_spmm_kernel(const int* __restrict__ col_blocks,
-                 const TT* __restrict__ tiles, const TX* __restrict__ x,
-                 TY* __restrict__ y, int kb, int n, int m, int s) {
-    const int rb = blockIdx.x;
-    const int c = threadIdx.x;
-    const int warp = c >> 5, lane = c & 31;
-    const bool upper = lane >= kRhsChunk;     // rows 4..7, else 0..3
-    const int q0 = lane % kRhsChunk;
-    const int* cb = col_blocks + (long long)rb * kb;
-    const TT* tb = tiles + (long long)rb * kb * (kRows * kCols);
-    A acc[kMaxChunks][kLaneRows];
+// acc += v * X[xr, the lane's chunks]
+template <typename TX, typename A, int W, int NCH>
+__device__ __forceinline__ void fma_cols(A (&acc)[NCH][W], A v,
+                                         const TX* __restrict__ xr, int l,
+                                         int L, int C) {
 #pragma unroll
-    for (int ch = 0; ch < kMaxChunks; ++ch)
+    for (int h = 0; h < NCH; ++h) {
+        const int ch = l + h * L;
+        if (ch < C) {
+            A xv[W];
+            ldg_cols(xr + ch * W, xv);
 #pragma unroll
-        for (int j = 0; j < kLaneRows; ++j) acc[ch][j] = A(0);
-    for (int k = 0; k < kb; ++k) {
-        const long long col0 = (long long)cb[k] * kCols;
-        const TT* tk = tb + (long long)k * (kRows * kCols) + c;
-        A tv[kRows];
-        bool any = false;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-            tv[r] = A(widen(tk[r * kCols]));
-            any |= (tv[r] != A(0));
-        }
-        unsigned mask = __ballot_sync(0xffffffffu, any && col0 + c < m);
-        while (mask) {                        // uniform over the warp
-            const int src = __ffs(mask) - 1;
-            mask &= mask - 1;
-            A t4[kLaneRows];
-#pragma unroll
-            for (int j = 0; j < kLaneRows; ++j) {
-                const A lo = __shfl_sync(0xffffffffu, tv[j], src);
-                const A hi = __shfl_sync(0xffffffffu, tv[j + kLaneRows], src);
-                t4[j] = upper ? hi : lo;
-            }
-            const TX* xr = x + (col0 + (warp << 5) + src) * s;
-#pragma unroll
-            for (int ch = 0; ch < kMaxChunks; ++ch) {
-                const int q = ch * kRhsChunk + q0;
-                if (ch * kRhsChunk < s) {     // uniform over the warp
-                    const A xv = q < s ? A(widen(xr[q])) : A(0);
-#pragma unroll
-                    for (int j = 0; j < kLaneRows; ++j)
-                        acc[ch][j] += t4[j] * xv;
-                }
-            }
+            for (int w = 0; w < W; ++w) acc[h][w] += v * xv[w];
         }
     }
-    __shared__ A part[kCols / 32][kRows][kRhsChunk];
-    const int r = c / kRhsChunk, qq = c % kRhsChunk;   // 8 x 16 outputs
-    const long long row = (long long)rb * kRows + r;
+}
+
+template <typename TV, typename TX, typename TY, typename A, int W, int R>
+__global__ void __launch_bounds__(kThreads)
+bcsr_row_spmm_kernel(const int* __restrict__ row_ptr,
+                     const int* __restrict__ col_idx,
+                     const TV* __restrict__ vals, const TX* __restrict__ x,
+                     TY* __restrict__ y, int n, int m, int s, int lgl) {
+    constexpr int NCH = W == 1 ? 2 : 1;     // column chunks per lane
+    const int L = 1 << lgl;
+    const long long r0 = (((long long)blockIdx.x * kThreads + threadIdx.x)
+                          >> lgl) * R;
+    const int l = threadIdx.x & (L - 1);
+    const int C = s / W;                    // chunks of a row
+    int rp[R + 1];
+    load_rows<R>(row_ptr, r0, n, rp);
+    int c[R];
+    A v[R], acc[R][NCH][W];
 #pragma unroll
-    for (int ch = 0; ch < kMaxChunks; ++ch) {
-        if (ch * kRhsChunk < s) {             // uniform over the block
-            __syncthreads();                  // last chunk's readers done
+    for (int i = 0; i < R; ++i) {
+        c[i] = rp[i] < rp[i + 1] ? col_idx[rp[i]] : -1;
+        v[i] = rp[i] < rp[i + 1] ? A(widen(vals[rp[i]])) : A(0);
 #pragma unroll
-            for (int j = 0; j < kLaneRows; ++j)
-                part[warp][(upper ? kLaneRows : 0) + j][q0] = acc[ch][j];
-            __syncthreads();
-            const int q = ch * kRhsChunk + qq;
-            if (q < s && row < n) {
-                A sum = A(0);
+        for (int h = 0; h < NCH; ++h)
 #pragma unroll
-                for (int w = 0; w < kCols / 32; ++w) sum += part[w][r][qq];
-                narrow(y + row * s + q, sum);
+            for (int w = 0; w < W; ++w) acc[i][h][w] = A(0);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+        if ((unsigned)c[i] < (unsigned)m)
+            fma_cols(acc[i], v[i], x + (long long)c[i] * s, l, L, C);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        for (int j = rp[i] + 1; j < rp[i + 1]; ++j) {
+            const int cj = col_idx[j];
+            if ((unsigned)cj < (unsigned)m)
+                fma_cols(acc[i], A(widen(vals[j])), x + (long long)cj * s, l,
+                         L, C);
+        }
+        if (r0 + i < n) {
+#pragma unroll
+            for (int h = 0; h < NCH; ++h) {
+                const int ch = l + h * L;
+                if (ch < C) st_cols(y + (r0 + i) * s + ch * W, acc[i][h]);
             }
         }
     }
 }
 
-template <typename TT, typename TX, typename TY, typename A>
-static int launch_mr(const void* cb, const void* tiles, const void* x,
-                     void* y, int nbr, int kb, int n, int m, int s,
+template <typename TV, typename TX, typename TY, typename A, int W>
+static void launch_mr_w(const void* rp, const void* ci, const void* v,
+                        const void* x, void* y, int n, int m, int s,
+                        cudaStream_t st) {
+    const int chunks = s / W;
+    const int lgl = log2i(chunks < 32 ? chunks : 32);
+    const int r = rows_per_group((long long)n << lgl);
+    const long long threads = ((long long)n + r - 1) / r << lgl;
+    const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+    if (r == 1)
+        bcsr_row_spmm_kernel<TV, TX, TY, A, W, 1>
+            <<<blocks, kThreads, 0, st>>>((const int*)rp, (const int*)ci,
+                                          (const TV*)v, (const TX*)x, (TY*)y,
+                                          n, m, s, lgl);
+    else
+        bcsr_row_spmm_kernel<TV, TX, TY, A, W, kRows>
+            <<<blocks, kThreads, 0, st>>>((const int*)rp, (const int*)ci,
+                                          (const TV*)v, (const TX*)x, (TY*)y,
+                                          n, m, s, lgl);
+}
+
+template <typename TV, typename TX, typename TY, typename A>
+static int launch_mr(const void* rp, const void* ci, const void* v,
+                     const void* x, void* y, int n, int m, int s,
                      cudaStream_t st) {
-    bcsr_spmm_kernel<TT, TX, TY, A><<<nbr, kCols, 0, st>>>(
-        (const int*)cb, (const TT*)tiles, (const TX*)x, (TY*)y, kb, n, m, s);
+    constexpr int W = 16 / sizeof(TX);
+    const bool aligned = ((reinterpret_cast<unsigned long long>(x)
+                           | reinterpret_cast<unsigned long long>(y))
+                          & 15ull) == 0;
+    if (s % W == 0 && aligned)
+        launch_mr_w<TV, TX, TY, A, W>(rp, ci, v, x, y, n, m, s, st);
+    else
+        launch_mr_w<TV, TX, TY, A, 1>(rp, ci, v, x, y, n, m, s, st);
     return (int)cudaGetLastError();
 }
 
-// The (tiles, x) -> y pairs of bcsr_spmv_launch.
-extern "C" int bcsr_spmv_multirhs_launch(int tdt, int xdt,
-                                         const void* col_blocks,
-                                         const void* tiles, const void* x,
-                                         void* y, int nbr, int kb, int n,
-                                         int m, int s, void* stream) {
-    if (nbr < 0 || kb < 1 || n < 0 || m < 0 || n > nbr * kRows || s < 1
-        || s > kMaxChunks * kRhsChunk)
+// The (values, x) -> y pairs of bcsr_spmv_launch; 1 <= s <= 64.
+extern "C" int bcsr_spmv_multirhs_launch(int vdt, int xdt,
+                                         const void* row_ptr,
+                                         const void* col_idx,
+                                         const void* vals, const void* x,
+                                         void* y, int n, int m, int s,
+                                         void* stream) {
+    if (n < 0 || m < 0 || s < 1 || s > 64)
         return (int)cudaErrorInvalidValue;
-    if (nbr == 0 || n == 0) return 0;
+    if (n == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     typedef __nv_bfloat16 bf16;
-    if (tdt == DT_BF16 && xdt == DT_BF16)
-        return launch_mr<bf16, bf16, bf16, float>(col_blocks, tiles, x, y,
-                                                  nbr, kb, n, m, s, st);
-    if (tdt == DT_BF16 && xdt == DT_F32)
-        return launch_mr<bf16, float, float, float>(col_blocks, tiles, x, y,
-                                                    nbr, kb, n, m, s, st);
-    if (tdt == DT_F32 && xdt == DT_BF16)
-        return launch_mr<float, bf16, float, float>(col_blocks, tiles, x, y,
-                                                    nbr, kb, n, m, s, st);
-    if (tdt == DT_F32 && xdt == DT_F32)
-        return launch_mr<float, float, float, float>(col_blocks, tiles, x,
-                                                     y, nbr, kb, n, m, s, st);
-    if (tdt == DT_F64 && xdt == DT_F64)
+    if (vdt == DT_BF16 && xdt == DT_BF16)
+        return launch_mr<bf16, bf16, bf16, float>(row_ptr, col_idx, vals, x,
+                                                  y, n, m, s, st);
+    if (vdt == DT_BF16 && xdt == DT_F32)
+        return launch_mr<bf16, float, float, float>(row_ptr, col_idx, vals,
+                                                    x, y, n, m, s, st);
+    if (vdt == DT_F32 && xdt == DT_BF16)
+        return launch_mr<float, bf16, float, float>(row_ptr, col_idx, vals,
+                                                    x, y, n, m, s, st);
+    if (vdt == DT_F32 && xdt == DT_F32)
+        return launch_mr<float, float, float, float>(row_ptr, col_idx, vals,
+                                                     x, y, n, m, s, st);
+    if (vdt == DT_F64 && xdt == DT_F64)
         return launch_mr<double, double, double, double>(
-            col_blocks, tiles, x, y, nbr, kb, n, m, s, st);
+            row_ptr, col_idx, vals, x, y, n, m, s, st);
     return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,8 @@ import torch
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.amge import structured as stc
-from parelag_tpu_torch.ops.device_sparse import DiaMatrix, EllMatrix
+from parelag_tpu_torch.ops.device_sparse import (
+    BC, BR, BcsrMatrix, DiaMatrix, EllMatrix)
 from parelag_tpu_torch.ops import hopper_kernels
 from parelag_tpu_torch.solvers.autotune import _factory
 from parelag_tpu_torch.solvers.cg import pcg
@@ -218,11 +219,16 @@ def _timed_solves(H, Hb, b):
 
 def _stored_entries(M):
     """Stored operator entries as bench.py's flop model counts them:
-    the DIA table, ELL values or BCSR/TileCoo tiles."""
+    the DIA table, ELL values, TileCoo tiles, and for BCSR the TPU's
+    padded tile array, nbr * kb tiles of 8 x 128, which the port does
+    not store (its BcsrMatrix keeps the nonzeros): flops_per_iter stays
+    the JAX lane's."""
     if isinstance(M, DiaMatrix):
         return M.data.numel()
     if isinstance(M, EllMatrix):
         return M.values.numel()
+    if isinstance(M, BcsrMatrix):
+        return M.nbr * M.kb * BR * BC
     return M.tiles.numel() if hasattr(M, "tiles") else 0
 
 

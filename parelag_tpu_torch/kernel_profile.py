@@ -2,9 +2,15 @@
 
     python -m parelag_tpu_torch.kernel_profile            # 96^3, 24^3
     python -m parelag_tpu_torch.kernel_profile --nx 32 --nx-maxwell 8
+    python -m parelag_tpu_torch.kernel_profile --memory-only
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
-build_solver) and the Maxwell hierarchy (maxwell_lane), then traces with
+build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
+each build its wall time, the card's peak memory during it
+(torch.cuda.max_memory_allocated after reset_peak_memory_stats) and the
+bytes of the hierarchies' buffers ({"memory": ...} rows; --memory-only
+stops there, and uses only the lanes' build functions, so it also runs
+against an older checkout of the package).  Then it traces with
 torch.profiler (CPU and CUDA activities):
 
   * solves: REPS solves each of the 1-RHS flagship PCG, the 16-RHS block
@@ -15,7 +21,11 @@ torch.profiler (CPU and CUDA activities):
     idle share 1 - busy / wall, and device time by kernel;
   * kernels: LAUNCHES back-to-back calls of each hand-written kernel on
     the level-0 operators of those hierarchies (the main paths' largest
-    shapes): device microseconds per launch.
+    shapes): device microseconds per launch; for the BCSR and ELL
+    variants also library_device_us, the device time of one
+    torch.sparse_csr_tensor product on the same matrix and x, summed
+    over all device work of that call (null where the library takes no
+    mixed dtypes).
 
 Prints one JSON object per line: the card (nvidia-smi name and power
 limit, torch and CUDA versions), then {"solve": ...} and {"kernel": ...}
@@ -34,9 +44,11 @@ import torch
 
 from parelag_tpu_torch import device as pick_device, flagship, maxwell_lane
 from parelag_tpu_torch.ops import hopper_kernels as hk
-from parelag_tpu_torch.ops.device_sparse import from_scipy
+from parelag_tpu_torch.ops.device_sparse import (
+    BcsrMatrix, EllMatrix, from_scipy)
 
 REPS, LAUNCHES, N_RHS = 3, 20, 16
+MIXED_NOTE = "torch's CSR product takes one dtype for the matrix and x"
 
 #: kernel-name fragment of each hand-written kernel (csrc/*.cu)
 KERNEL_NAMES = {
@@ -44,8 +56,8 @@ KERNEL_NAMES = {
     "dia_jacobi_mr_kernel": "dia_jacobi_sweep_multirhs",
     "dia_spmv_kernel": "dia_spmv",
     "dia_jacobi_kernel": "dia_jacobi_sweep",
-    "bcsr_spmm_kernel": "bcsr_spmv_multirhs",
-    "bcsr_spmv_kernel": "bcsr_spmv",
+    "bcsr_row_spmm_kernel": "bcsr_spmv_multirhs",
+    "bcsr_row_spmv_kernel": "bcsr_spmv",
     "ell_spmv_kernel": "ell_spmv",
 }
 
@@ -57,27 +69,39 @@ def _label(name):
     return "torch: " + name[:60]
 
 
-def trace(fn, reps):
+def trace(fn, reps, attempts=3):
     """Run fn() reps times under torch.profiler; returns (host wall s
-    per call, device busy us per call, {label: [device us, count]})."""
+    per call, device busy us per call, {label: [device us, count]},
+    (hand-kernel launches in the trace, launches the wrappers counted)).
+    The profiler has been seen to drop device events (one launch in 20,
+    or all 20 of one kernel), so a trace short of the counted launches
+    is taken again, up to `attempts` times; the last one is returned
+    with its counts, and a row built from it says so."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        slot = by.setdefault(_label(e.key), [0.0, 0])
-        slot[0] += e.self_device_time_total / reps
-        slot[1] += e.count / reps
+        before = sum(hk.LAUNCHES.values())
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / reps
+        launched = sum(hk.LAUNCHES.values()) - before
+        by = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            slot = by.setdefault(_label(e.key), [0.0, 0])
+            slot[0] += e.self_device_time_total / reps
+            slot[1] += e.count / reps
+        seen = round(sum(v[1] for k, v in by.items() if k in hk.LAUNCHES)
+                     * reps)
+        if seen == launched:
+            break
     busy = sum(v[0] for v in by.values())
-    return wall, busy, by
+    return wall, busy, by, (seen, launched)
 
 
 def _wall_s(fn, reps):
@@ -98,13 +122,63 @@ def _wall_s(fn, reps):
 def _solve_row(name, fn):
     fn()                                      # warm-up
     wall = _wall_s(fn, REPS)
-    wall_prof, busy, by = trace(fn, REPS)
+    wall_prof, busy, by, (seen, launched) = trace(fn, REPS)
     top = sorted(by.items(), key=lambda kv: -kv[1][0])
+    # busy is short by the dropped events when seen < launched
     return dict(solve=name, wall_ms=wall * 1e3,
                 wall_ms_profiled=wall_prof * 1e3, device_busy_ms=busy / 1e3,
                 idle_share=1.0 - busy / 1e3 / (wall * 1e3),
+                traced_launches=seen, launches=launched,
                 by_kernel={k: dict(device_ms=v[0] / 1e3, launches=v[1])
                            for k, v in top})
+
+
+def _library_csr(M):
+    """torch.sparse_csr_tensor of a BcsrMatrix or EllMatrix on its
+    device (int64 indices, as the smoke's library operand)."""
+    if isinstance(M, BcsrMatrix):
+        return torch.sparse_csr_tensor(M.row_ptr.long(), M.col_idx.long(),
+                                       M.values, M.shape)
+    assert isinstance(M, EllMatrix)
+    n, k = M.values.shape
+    keep = (M.values != 0).reshape(-1)
+    rows = torch.arange(n, device=M.values.device).repeat_interleave(k)
+    idx = torch.stack([rows[keep], M.indices.reshape(-1)[keep].long()])
+    return torch.sparse_coo_tensor(idx, M.values.reshape(-1)[keep],
+                                   M.shape).coalesce().to_sparse_csr()
+
+
+def _buffer_bytes(*modules):
+    """Bytes of the modules' buffers, a tensor shared between them (the
+    coarse inverse of H and its bf16 cast) counted once."""
+    seen = {}
+    for mod in modules:
+        for b in mod.buffers():
+            seen[b.data_ptr()] = b.numel() * b.element_size()
+    return sum(seen.values())
+
+
+def _format_bytes(H, cls):
+    return sum(b.numel() * b.element_size() for m in H.modules()
+               if isinstance(m, cls) for b in m.buffers(recurse=False))
+
+
+def _memory_row(lane, build, dev):
+    """Wall time, card peak memory and hierarchy bytes of build()."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    hs = [h for h in out if isinstance(h, torch.nn.Module)]
+    row = dict(memory=lane, build_s=secs, allocated_before=before,
+               peak_allocated=torch.cuda.max_memory_allocated(dev),
+               allocated_after=torch.cuda.memory_allocated(dev),
+               hierarchy_bytes=_buffer_bytes(*hs),
+               bcsr_bytes=sum(_format_bytes(h, BcsrMatrix) for h in hs))
+    return row, out
 
 
 def _kernel_rows(H, Hb, P0, Hm, dev):
@@ -126,41 +200,57 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
     xe = {M: torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
                              ).to(dev)
           for M in (hip.A_aux, hip.D, hip.Dt, E0, Am, Pm, Rm)}
+    ecb, Ecb = ec.to(torch.bfloat16), Ec.to(torch.bfloat16)
+    # (kernel, variant, matrix, x): a matrix and x of one dtype also time
+    # the library's CSR product
     cases = [
-        ("dia_spmv", "A0 f32", lambda: A @ x),
-        ("dia_spmv", "A0 bf16", lambda: Ab @ xb),
+        ("dia_spmv", "A0 f32", A, x),
+        ("dia_spmv", "A0 bf16", Ab, xb),
         ("dia_jacobi_sweep", "A0 bf16",
-         lambda: hk.dia_jacobi_sweep(Ab.data, Ab.offs, xb, xb, dw)),
-        ("dia_spmv_multirhs", f"A0 f32 s={N_RHS}", lambda: A @ X),
-        ("dia_spmv_multirhs", f"A0 bf16 s={N_RHS}", lambda: Ab @ Xb),
+         lambda: hk.dia_jacobi_sweep(Ab.data, Ab.offs, xb, xb, dw), None),
+        ("dia_spmv_multirhs", f"A0 f32 s={N_RHS}", A, X),
+        ("dia_spmv_multirhs", f"A0 bf16 s={N_RHS}", Ab, Xb),
         ("dia_jacobi_sweep_multirhs", f"A0 bf16 s={N_RHS}",
          lambda: hk.dia_jacobi_sweep_multirhs(Ab.data, Ab.offs, Xb, Xb,
-                                              dw)),
-        ("bcsr_spmv", "P0 bf16 tiles, bf16 x", lambda: Pb @ ec.to(
-            torch.bfloat16)),
-        ("bcsr_spmv", "P0 bf16 tiles, f32 x", lambda: Pb @ ec),
-        ("bcsr_spmv", "R0 bf16", lambda: Rb @ xb),
-        ("bcsr_spmv", "Maxwell A0 f32", lambda: Am @ xe[Am]),
-        ("bcsr_spmv", "Maxwell P0 f32", lambda: Pm @ xe[Pm]),
-        ("bcsr_spmv", "Maxwell R0 f32", lambda: Rm @ xe[Rm]),
-        ("bcsr_spmv_multirhs", f"P0 bf16 tiles, bf16 X s={N_RHS}",
-         lambda: Pb @ Ec.to(torch.bfloat16)),
-        ("bcsr_spmv_multirhs", f"P0 bf16 tiles, f32 X s={N_RHS}",
-         lambda: Pb @ Ec),
-        ("ell_spmv", "Maxwell A_aux f32", lambda: hip.A_aux @ xe[hip.A_aux]),
-        ("ell_spmv", "Maxwell D0 f32", lambda: hip.D @ xe[hip.D]),
-        ("ell_spmv", "Maxwell D0^T f32", lambda: hip.Dt @ xe[hip.Dt]),
-        ("ell_spmv", "flagship P0 as ELL f32", lambda: E0 @ xe[E0]),
+                                              dw), None),
+        ("bcsr_spmv", "P0 bf16 values, bf16 x", Pb, ecb),
+        ("bcsr_spmv", "P0 bf16 values, f32 x", Pb, ec),
+        ("bcsr_spmv", "R0 bf16", Rb, xb),
+        ("bcsr_spmv", "Maxwell A0 f32", Am, xe[Am]),
+        ("bcsr_spmv", "Maxwell P0 f32", Pm, xe[Pm]),
+        ("bcsr_spmv", "Maxwell R0 f32", Rm, xe[Rm]),
+        ("bcsr_spmv_multirhs", f"P0 bf16 values, bf16 X s={N_RHS}", Pb,
+         Ecb),
+        ("bcsr_spmv_multirhs", f"P0 bf16 values, f32 X s={N_RHS}", Pb, Ec),
+        ("bcsr_spmv_multirhs", f"R0 bf16 s={N_RHS}", Rb, Xb),
+        ("ell_spmv", "Maxwell A_aux f32", hip.A_aux, xe[hip.A_aux]),
+        ("ell_spmv", "Maxwell D0 f32", hip.D, xe[hip.D]),
+        ("ell_spmv", "Maxwell D0^T f32", hip.Dt, xe[hip.Dt]),
+        ("ell_spmv", "flagship P0 as ELL f32", E0, xe[E0]),
     ]
     rows = []
-    for name, variant, fn in cases:
+    for name, variant, M, v in cases:
+        fn = M if v is None else (lambda M=M, v=v: M @ v)
         fn()
-        _, _, by = trace(fn, LAUNCHES)
+        _, _, by, (seen, launched) = trace(fn, LAUNCHES)
         us, count = by.get(name, [0.0, 0])
-        if count < 1:
-            raise RuntimeError(f"{name}[{variant}]: the kernel did not run")
-        rows.append(dict(kernel=name, variant=variant,
-                         device_us_per_launch=us / count))
+        if count <= 0:
+            raise RuntimeError(f"{name}[{variant}]: no launch of the kernel "
+                               f"in the trace ({launched} counted)")
+        # per launch over the launches the trace holds
+        row = dict(kernel=name, variant=variant,
+                   device_us_per_launch=us / count,
+                   traced_launches=seen, launches=launched)
+        if isinstance(M, (BcsrMatrix, EllMatrix)):
+            row["library_device_us"] = None
+            if M.dtype == v.dtype:
+                csr = _library_csr(M)
+                lib = (lambda csr=csr, v=v: csr @ v)
+                lib()
+                row["library_device_us"] = trace(lib, LAUNCHES)[1]
+            else:
+                row["library_note"] = MIXED_NOTE
+        rows.append(row)
     return rows
 
 
@@ -170,19 +260,37 @@ def main(argv=None):
     ap.add_argument("--nx-maxwell", type=int, default=24)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
+    ap.add_argument("--memory-only", action="store_true",
+                    help="stop after the two builds' memory rows")
     args = ap.parse_args(argv)
     dev = pick_device()
+
+    def build_h1():
+        A_levels, P_levels, b = flagship.build_h1_structured(args.nx,
+                                                             device=dev)
+        return (A_levels, P_levels, b) + tuple(
+            flagship.build_solver(A_levels, P_levels, dev))
+
+    def build_mx():
+        A, bm, MA, MP, MD0 = maxwell_lane.build_maxwell(args.nx_maxwell,
+                                                        dev)
+        return (bm, MA, MP, MD0,
+                maxwell_lane.build_solver(MA, MP, MD0, dev))
+
+    mem_h1, (A_levels, P_levels, b, H, Hb) = _memory_row(
+        f"h1 {args.nx}^3", build_h1, dev)
+    mem_mx, (bm, MA, MP, MD0, Hm) = _memory_row(
+        f"maxwell {args.nx_maxwell}^3", build_mx, dev)
+    rows = [mem_h1, mem_mx]
+    if args.memory_only:
+        _emit(rows, args.out)
+        return
     hk.load()
-    A_levels, P_levels, b = flagship.build_h1_structured(args.nx,
-                                                         device=dev)
-    H, Hb = flagship.build_solver(A_levels, P_levels, dev)
-    A, bm, MA, MP, MD0 = maxwell_lane.build_maxwell(args.nx_maxwell, dev)
-    Hm = maxwell_lane.build_solver(MA, MP, MD0, dev)
     bt = torch.as_tensor(b.astype(np.float32)).to(dev)
     B = torch.as_tensor(np.random.RandomState(0).randn(
         A_levels[0].shape[0], N_RHS).astype(np.float32)).to(dev)
     bmt = torch.as_tensor(bm.astype(np.float32)).to(dev)
-    rows = [
+    rows += [
         _solve_row(f"h1 {args.nx}^3 1 RHS",
                    lambda: flagship.solve(H, Hb, bt)),
         _solve_row(f"h1 {args.nx}^3 {N_RHS} RHS",
@@ -191,6 +299,11 @@ def main(argv=None):
                    lambda: maxwell_lane.solve(Hm, bmt)),
     ]
     rows += _kernel_rows(H, Hb, P_levels[0], Hm, dev)
+    _emit(rows, args.out)
+
+
+def _emit(rows, out):
+    """Print the card line and the rows as JSON lines (and to out)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -198,9 +311,9 @@ def main(argv=None):
     lines = [json.dumps(r) for r in [dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda)] + rows]
     print("\n".join(lines))
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
             f.write("\n".join(lines) + "\n")
 
 

@@ -129,10 +129,10 @@ def load():
                                      i32, i32, vp],
         "dia_jacobi_sweep_multirhs_launch": [i32, vp, vp, vp, vp, vp, ip,
                                              i32, i64, i32, i32, vp],
-        "bcsr_spmv_launch": [i32, i32, vp, vp, vp, vp, i32, i32, i32, i32,
+        "bcsr_spmv_launch": [i32, i32, vp, vp, vp, vp, vp, i32, i32, i32,
                              vp],
-        "bcsr_spmv_multirhs_launch": [i32, i32, vp, vp, vp, vp, i32, i32,
-                                      i32, i32, i32, vp],
+        "bcsr_spmv_multirhs_launch": [i32, i32, vp, vp, vp, vp, vp, i32,
+                                      i32, i32, vp],
         "ell_spmv_launch": [i32, vp, vp, vp, vp, i32, i32, i32, vp],
     }
     for name, argtypes in signatures.items():

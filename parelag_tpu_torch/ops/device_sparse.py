@@ -10,7 +10,8 @@ structure metadata (shape, offsets, padding) are plain attributes.
                  go through ops/hopper_kernels (dia_spmv /
                  dia_jacobi_sweep, and their _multirhs kernels for
                  (n, s) inputs)
-  BcsrMatrix     8 x 128 block-sparse rows; matvec through
+  BcsrMatrix     the nonzeros in row order (row_ptr, col_idx, values),
+                 not the JAX package's 8 x 128 tiles; matvec through
                  hopper_kernels.bcsr_spmv (bcsr_spmv_multirhs for (m, s))
   TileCooMatrix  only the nonempty tiles, with a segment-sum over row
                  blocks (index_add_, plain torch as XLA's segment_sum in
@@ -102,38 +103,76 @@ def from_scipy(A, dtype=None, device=None) -> EllMatrix:
                      _tensor(values, dtype, device), (n, m))
 
 
-class BcsrMatrix(nn.Module):
-    """Block-sparse rows: per 8-row block a padded list of 128-column
-    block ids (col_blocks (nbr, kb) int32) and dense (8, 128) tiles
-    (tiles (nbr, kb, 8, 128)).  padded = (n_pad, m_pad)."""
+BR, BC = 8, 128     # the TPU tile: BCSR's structure counts, TileCoo's tiles
 
-    def __init__(self, col_blocks, tiles, shape, padded):
+
+class BcsrMatrix(nn.Module):
+    """The JAX BcsrMatrix's matrix, stored as its nonzeros in row order:
+    row_ptr (n + 1) int32, col_idx (nnz) int32 and values (nnz), sorted
+    by (row, column), with no duplicates and no explicit zeros.
+
+    The JAX package stores dense 8 x 128 tiles, the shape of the TPU's
+    matrix unit and lanes; like the other TPU workarounds it is not
+    ported.  On the V-cycle's transfers those tiles are 1-3 % full, and
+    on the H100 the product is bound by the bytes it reads, so the port
+    keeps only the nonzeros: no device holds or streams the padding.
+    What the format choice and the flop model count of the tile layout
+    stays as plain attributes: nbr row blocks of 8 rows and kb, the
+    nonempty 128-column blocks of the densest row block (the JAX layout
+    holds nbr * kb tiles); padded = (n_pad, m_pad) of that layout.
+    group records the lanes per row that the 1-RHS CUDA kernel takes
+    for this matrix (hopper_kernels.group_width of the mean nonzeros per
+    row)."""
+
+    def __init__(self, row_ptr, col_idx, values, shape, padded, nbr, kb):
         super().__init__()
-        self.register_buffer("col_blocks", col_blocks)
-        self.register_buffer("tiles", tiles)
+        self.register_buffer("row_ptr", row_ptr)
+        self.register_buffer("col_idx", col_idx)
+        self.register_buffer("values", values)
         self.shape = tuple(shape)
         self.padded = tuple(padded)
+        self.nbr, self.kb = int(nbr), int(kb)
+        self.group = hk.group_width(col_idx.numel(), self.shape[0])
+
+    @classmethod
+    def from_tiles(cls, col_blocks, tiles, shape, padded):
+        """From the JAX layout (col_blocks (nbr, kb) and tiles (nbr, kb,
+        8, 128), on their device): the tiles' nonzeros in (row, column)
+        order; a column block listed twice in a row block is summed."""
+        nbr, kb = col_blocks.shape
+        n, m = shape
+        rb, k, r, c = (tiles != 0).nonzero(as_tuple=True)
+        row = rb * BR + r
+        col = col_blocks[rb, k].long() * BC + c
+        keep = (row < n) & (col < m)
+        key, inv = torch.unique(row[keep] * m + col[keep],
+                                return_inverse=True)
+        values = torch.zeros(key.numel(), dtype=tiles.dtype,
+                             device=tiles.device)
+        values.index_add_(0, inv, tiles[rb, k, r, c][keep])
+        row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=tiles.device)
+        row_ptr[1:] = torch.bincount(key // max(m, 1), minlength=n).cumsum(0)
+        return cls(row_ptr, (key % max(m, 1)).to(torch.int32), values,
+                   shape, padded, nbr, kb)
 
     @property
     def dtype(self):
-        return self.tiles.dtype
+        return self.values.dtype
 
     def matvec(self, x):
         if x.ndim == 2:
-            return hk.bcsr_spmv_multirhs(self.col_blocks, self.tiles, x,
-                                         self.shape[0])
-        return hk.bcsr_spmv(self.col_blocks, self.tiles, x, self.shape[0])
+            return hk.bcsr_spmv_multirhs(self.row_ptr, self.col_idx,
+                                         self.values, x, self.shape[0])
+        return hk.bcsr_spmv(self.row_ptr, self.col_idx, self.values, x,
+                            self.shape[0])
 
     def __matmul__(self, x):
         return self.matvec(x)
 
 
-BR, BC = hk.BCSR_BR, hk.BCSR_BC     # tile shape of BCSR and TileCoo
-
-
 def _bcsr_blocks(A):
-    """Shared host structure of to_bcsr/bcsr_stats/to_tilecoo: unique
-    (row block, col block) keys of the nonzeros."""
+    """Shared host structure of bcsr_stats/to_tilecoo: unique (row
+    block, col block) keys of the nonzeros."""
     coo = A.tocoo()
     n, m = A.shape
     nbc = -(-m // BC)
@@ -145,33 +184,18 @@ def _bcsr_blocks(A):
 
 
 def to_bcsr(A, dtype=np.float32, device=None) -> BcsrMatrix:
-    """Convert scipy sparse to the BCSR device layout (vectorized)."""
+    """Convert scipy sparse to the BcsrMatrix layout straight from its
+    CSR (duplicates summed, indices sorted, explicit zeros dropped)."""
     device = resolve_device(device)
-    A = sp.csr_matrix(A)
+    A = sp.csr_matrix(A, copy=True)
     A.sum_duplicates()
+    A.eliminate_zeros()
     n, m = A.shape
-    n_pad = -(-n // BR) * BR
-    m_pad = -(-m // BC) * BC
-    nbr = n_pad // BR
-    coo, nbc, rb, uk, inv = _bcsr_blocks(A)
-    urb = uk // nbc
-    ucb = uk % nbc
-    counts = np.bincount(urb, minlength=nbr)
-    kb = int(max(counts.max() if counts.size else 1, 1))
-    start = np.zeros(nbr + 1, np.int64)
-    np.cumsum(counts, out=start[1:])
-    slot_of_uk = np.arange(uk.size, dtype=np.int64) - start[urb]
-    col_blocks = np.zeros((nbr, kb), dtype=np.int32)
-    col_blocks[urb, slot_of_uk] = ucb
-    tdt = as_torch_dtype(dtype)
-    tiles = torch.zeros(nbr * kb * BR * BC, dtype=tdt)
-    flat = (((rb * kb + slot_of_uk[inv]) * BR
-             + coo.row.astype(np.int64) % BR) * BC
-            + coo.col.astype(np.int64) % BC)
-    tiles[torch.as_tensor(flat)] = torch.as_tensor(coo.data).to(tdt)
-    return BcsrMatrix(_tensor(col_blocks, device=device),
-                      tiles.reshape(nbr, kb, BR, BC).to(device),
-                      (n, m), (n_pad, m_pad))
+    nbr, kb, _ = bcsr_stats(A)
+    return BcsrMatrix(_tensor(A.indptr.astype(np.int32), device=device),
+                      _tensor(A.indices.astype(np.int32), device=device),
+                      _tensor(A.data, dtype, device), (n, m),
+                      (nbr * BR, -(-m // BC) * BC), nbr, kb)
 
 
 class TileCooMatrix(nn.Module):

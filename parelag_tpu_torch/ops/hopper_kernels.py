@@ -39,7 +39,6 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 DIA_MAX_OFFS = 48            # csrc/dia.cu DIA_MAX_OFFS
 MAX_RHS = 64                 # s limit of the multi-RHS kernels
                              # (DiaMatrix._MAX_RHS of the JAX module)
-BCSR_BR, BCSR_BC = 8, 128    # csrc/bcsr.cu tile shape
 
 _LIB = None
 
@@ -237,91 +236,102 @@ def dia_jacobi_sweep_multirhs(data, offs, x, b, dw):
 
 
 # --------------------------------------------------------------------- #
-# BCSR SpMV, 1 and s right-hand sides
+# BCSR SpMV (row-compressed nonzeros), 1 and s right-hand sides
 # --------------------------------------------------------------------- #
 
-# (tiles, x) dtype pairs csrc/bcsr.cu is instantiated for
+# (values, x) dtype pairs csrc/bcsr.cu is instantiated for
 _BCSR_PAIRS = {
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
     (torch.float64, torch.float64)}
 
 
-def bcsr_spmv_plain(col_blocks, tiles, x, n):
-    """y = BCSR(col_blocks (nbr, kb), tiles (nbr, kb, 8, 128)) @ x for
-    the first n rows, x (m,) or (m, s).  Accumulates in f32 (f64 for
-    f64) and returns the promoted dtype of tiles and x."""
-    bc = tiles.shape[3]
-    out = torch.promote_types(tiles.dtype, x.dtype)
+def group_width(nnz, n):
+    """Lanes per row of the 1-RHS BCSR kernel: the power of two that
+    covers the mean nonzeros per row, from 2 up to 16 (P0 of the
+    flagship, ~3.3 -> 4; R0, ~26 -> 16).  Not 32: on rows of ~26
+    nonzeros 16 lanes and a second pass beat one pass of 32 lanes, which
+    leaves 6 idle and takes a fifth shuffle step (csrc/bcsr.cu)."""
+    g = 2
+    while g < 16 and g * max(n, 1) < nnz:
+        g *= 2
+    return g
+
+
+def bcsr_spmv_plain(row_ptr, col_idx, values, x, n):
+    """y = A @ x for the n-row matrix A held as row_ptr (n + 1), col_idx
+    (nnz) and values (nnz), x (m,) or (m, s): row ids by repeat_interleave
+    over row_ptr, a gather of x, the products in f32 (f64 for f64) and an
+    index_add_ into y, returned in the promoted dtype of values and x."""
+    out = torch.promote_types(values.dtype, x.dtype)
     acc = acc_dtype(out)
-    m = x.shape[0]
-    rest = tuple(x.shape[1:])
-    xp = torch.zeros((-(-m // bc) * bc,) + rest, dtype=acc, device=x.device)
-    xp[:m] = x.to(acc)
-    g = xp.reshape((-1, bc) + rest)[col_blocks]       # (nbr, kb, bc[, s])
-    if x.ndim == 2:
-        y = torch.einsum("nkrc,nkcs->nrs", tiles.to(acc), g)
-    else:
-        y = torch.einsum("nkrc,nkc->nr", tiles.to(acc), g)
-    return y.reshape((-1,) + rest)[:n].to(out)
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=x.device), row_ptr.diff(),
+        output_size=col_idx.numel())
+    prod = _rows(values.to(acc), x) * x.to(acc)[col_idx]
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=acc, device=x.device)
+    y.index_add_(0, rows, prod)
+    return y.to(out)
 
 
-def _bcsr_args(name, col_blocks, tiles, x, n):
-    nbr, kb, br, bc = tiles.shape
-    _check(name, (br, bc) == (BCSR_BR, BCSR_BC),
-           f"tile shape {(br, bc)} (need {(BCSR_BR, BCSR_BC)})")
-    _check(name, col_blocks.shape == (nbr, kb)
-           and col_blocks.dtype == torch.int32,
-           f"col_blocks {tuple(col_blocks.shape)} {col_blocks.dtype}")
-    _check(name, (tiles.dtype, x.dtype) in _BCSR_PAIRS,
-           f"dtypes tiles={tiles.dtype} x={x.dtype}")
-    _check(name, n <= nbr * br, f"n={n} > {nbr * br} rows")
-    _check(name, all(t.is_contiguous() for t in (col_blocks, tiles, x)),
+def _bcsr_args(name, row_ptr, col_idx, values, x, n):
+    _check(name, row_ptr.shape == (n + 1,) and row_ptr.dtype == torch.int32
+           and col_idx.dtype == torch.int32
+           and col_idx.shape == values.shape and values.ndim == 1,
+           f"row_ptr {tuple(row_ptr.shape)} {row_ptr.dtype}, col_idx "
+           f"{tuple(col_idx.shape)} {col_idx.dtype}, values "
+           f"{tuple(values.shape)} (need (n + 1,) int32, (nnz,) int32 and "
+           f"(nnz,), n={n})")
+    _check(name, (values.dtype, x.dtype) in _BCSR_PAIRS,
+           f"dtypes values={values.dtype} x={x.dtype}")
+    _check(name, all(t.is_contiguous() for t in (row_ptr, col_idx, values,
+                                                  x)),
            "tensors must be contiguous")
-    return nbr, kb
 
 
-def bcsr_spmv(col_blocks, tiles, x, n):
-    """BCSR SpMV (csrc/bcsr.cu on CUDA).  On CUDA x is (m,) and
-    (tiles, x) is one of bf16/bf16, bf16|f32 x bf16|f32, f64/f64."""
-    if _on_cpu(col_blocks, tiles, x):
-        return bcsr_spmv_plain(col_blocks, tiles, x, n)
+def bcsr_spmv(row_ptr, col_idx, values, x, n):
+    """BCSR SpMV (csrc/bcsr.cu on CUDA, bcsr_spmv_plain on CPU).  On CUDA
+    x is (m,) and (values, x) is one of bf16/bf16, bf16|f32 x bf16|f32,
+    f64/f64; the kernel takes group_width lanes per row."""
+    if _on_cpu(row_ptr, col_idx, values, x):
+        return bcsr_spmv_plain(row_ptr, col_idx, values, x, n)
     name = "bcsr_spmv"
     _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
-    nbr, kb = _bcsr_args(name, col_blocks, tiles, x, n)
+    _bcsr_args(name, row_ptr, col_idx, values, x, n)
     lib = load()
-    y = torch.empty(n, dtype=torch.promote_types(tiles.dtype, x.dtype),
+    y = torch.empty(n, dtype=torch.promote_types(values.dtype, x.dtype),
                     device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.bcsr_spmv_launch(
-            DTYPE_CODES[tiles.dtype], DTYPE_CODES[x.dtype],
-            _ptr(col_blocks), _ptr(tiles), _ptr(x), _ptr(y), nbr, kb, n,
-            x.shape[0], _stream(x))
+            DTYPE_CODES[values.dtype], DTYPE_CODES[x.dtype], _ptr(row_ptr),
+            _ptr(col_idx), _ptr(values), _ptr(x), _ptr(y), n, x.shape[0],
+            group_width(col_idx.numel(), n), _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return y
 
 
-def bcsr_spmv_multirhs(col_blocks, tiles, x, n):
+def bcsr_spmv_multirhs(row_ptr, col_idx, values, x, n):
     """BCSR product with s right-hand sides (csrc/bcsr.cu on CUDA,
-    bcsr_spmv_plain on CPU): x (m, s) row-major, y (n, s); every tile is
-    read once for all s columns.  On CUDA 1 <= s <= 64 and the dtype
+    bcsr_spmv_plain on CPU): x (m, s) row-major, y (n, s); each nonzero
+    is read once for all s columns.  On CUDA 1 <= s <= 64 and the dtype
     pairs of bcsr_spmv."""
-    if _on_cpu(col_blocks, tiles, x):
-        return bcsr_spmv_plain(col_blocks, tiles, x, n)
+    if _on_cpu(row_ptr, col_idx, values, x):
+        return bcsr_spmv_plain(row_ptr, col_idx, values, x, n)
     name = "bcsr_spmv_multirhs"
     _check(name, x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS,
            f"x{tuple(x.shape)} must be (m, s) with 1 <= s <= {MAX_RHS}")
-    nbr, kb = _bcsr_args(name, col_blocks, tiles, x, n)
+    _bcsr_args(name, row_ptr, col_idx, values, x, n)
     m, s = x.shape
     lib = load()
-    y = torch.empty((n, s), dtype=torch.promote_types(tiles.dtype, x.dtype),
+    y = torch.empty((n, s), dtype=torch.promote_types(values.dtype,
+                                                      x.dtype),
                     device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.bcsr_spmv_multirhs_launch(
-            DTYPE_CODES[tiles.dtype], DTYPE_CODES[x.dtype],
-            _ptr(col_blocks), _ptr(tiles), _ptr(x), _ptr(y), nbr, kb, n, m,
-            s, _stream(x))
+            DTYPE_CODES[values.dtype], DTYPE_CODES[x.dtype], _ptr(row_ptr),
+            _ptr(col_idx), _ptr(values), _ptr(x), _ptr(y), n, m, s,
+            _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return y

@@ -19,7 +19,7 @@ from torch import nn
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops.device_sparse import (
-    as_torch_dtype, bcsr_stats, dia_n_offsets, from_scipy, to_bcsr,
+    BC, BR, as_torch_dtype, bcsr_stats, dia_n_offsets, from_scipy, to_bcsr,
     to_dia, to_tilecoo)
 
 
@@ -136,10 +136,13 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
                 return to_dia(M, dtype=dtype, device=device)
             fmt = "bcsr"
         if fmt == "bcsr":
+            # the JAX package's rule on its tile array: nbr * kb tiles
+            # of 8 x 128 (bcsr_stats), though the port stores only the
+            # nonzeros, so that the same matrices take the same format
             B = to_bcsr(M, dtype=dtype, device=device)
-            size_ok = (B.tiles.numel() * np.dtype(dtype).itemsize
-                       <= (1 << 29)
-                       and B.tiles.numel() <= 128 * max(M.nnz, 1))
+            slots = B.nbr * B.kb * BR * BC
+            size_ok = (slots * np.dtype(dtype).itemsize <= (1 << 29)
+                       and slots <= 128 * max(M.nnz, 1))
             if size_ok:
                 return B
         return from_scipy(M, dtype=dtype, device=device)

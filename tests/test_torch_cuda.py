@@ -61,22 +61,44 @@ def test_dia_kernels_match_plain(card, dtype):
         <= LIMIT[dtype]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tdt,xdt", [
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-    (torch.float32, torch.float32), (torch.float64, torch.float64)])
-def test_bcsr_kernel_matches_plain(card, tdt, xdt):
-    rng = np.random.RandomState(1)
-    n, m = 20_001, 7_777
-    rows = np.repeat(np.arange(n), 3)
+# the (values, x) dtype pairs of the BCSR kernels
+BCSR_PAIRS = [(torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.float32, torch.bfloat16),
+              (torch.float32, torch.float32),
+              (torch.float64, torch.float64)]
+
+
+def _ragged(per_row, n=20_001, m=7_777):
+    """per_row nonzeros a row near the diagonal's band, every 7th row
+    empty, and row 5 with 100 (more than a warp); n is odd, so not a
+    multiple of any group of lanes."""
+    rng = np.random.RandomState(per_row)
+    rows = np.repeat(np.arange(n), per_row)
     cols = (rows * m // n + rng.randint(-300, 300, rows.size)) % m
-    B = to_bcsr(sp.csr_matrix((rng.randn(rows.size), (rows, cols)),
-                              shape=(n, m)), tdt, device=card)
-    x = torch.as_tensor(rng.randn(m)).to(xdt).to(card)
-    y = hk.bcsr_spmv(B.col_blocks, B.tiles, x, n)
+    keep = rows % 7 != 3
+    rows = np.concatenate([rows[keep], np.full(100, 5)])
+    cols = np.concatenate([cols[keep], rng.choice(m, 100, replace=False)])
+    return sp.csr_matrix((rng.randn(rows.size), (rows, cols)),
+                         shape=(n, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row,group", [(3, 4), (26, 16)])
+@pytest.mark.parametrize("tdt,xdt", BCSR_PAIRS)
+def test_bcsr_kernel_matches_plain(card, tdt, xdt, per_row, group):
+    A = _ragged(per_row)
+    B = to_bcsr(A, tdt, device=card)
+    assert B.group == group and B.row_ptr.diff().max().item() >= 100
+    x = torch.as_tensor(np.random.RandomState(1).randn(A.shape[1])
+                        ).to(xdt).to(card)
+    before = hk.LAUNCHES["bcsr_spmv"]
+    y = B @ x
     torch.cuda.synchronize()
-    yp = hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x, n)
+    assert hk.LAUNCHES["bcsr_spmv"] == before + 1
+    yp = hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values, x, A.shape[0])
     assert _rel(y, yp) <= LIMIT[y.dtype]
+    assert not y[3::7].any()
 
 
 @pytest.mark.cuda
@@ -129,24 +151,64 @@ def test_dia_multirhs_kernels_match_plain(card, dtype, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [16, 37])
-@pytest.mark.parametrize("tdt,xdt", [
-    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-    (torch.float32, torch.float32), (torch.float64, torch.float64)])
-def test_bcsr_multirhs_kernel_matches_plain(card, tdt, xdt, s):
-    """s = 37 leaves a ragged last chunk of 16 columns."""
-    rng = np.random.RandomState(2)
-    n, m = 20_001, 7_777
-    rows = np.repeat(np.arange(n), 3)
-    cols = (rows * m // n + rng.randint(-300, 300, rows.size)) % m
-    B = to_bcsr(sp.csr_matrix((rng.randn(rows.size), (rows, cols)),
-                              shape=(n, m)), tdt, device=card)
-    x = torch.as_tensor(rng.randn(m, s)).to(xdt).to(card)
-    y = hk.bcsr_spmv_multirhs(B.col_blocks, B.tiles, x, n)
-    torch.cuda.synchronize()
-    assert y.shape == (n, s)
-    assert _rel(y, hk.bcsr_spmv_plain(B.col_blocks, B.tiles, x, n)) \
-        <= LIMIT[y.dtype]
+@pytest.mark.parametrize("per_row", [3, 26])
+@pytest.mark.parametrize("s", [1, 3, 16, 37, 64])
+@pytest.mark.parametrize("tdt,xdt", BCSR_PAIRS)
+def test_bcsr_multirhs_kernel_matches_plain(card, tdt, xdt, s, per_row):
+    """s = 1, 3 and 37 take one column per lane (37: two chunks for some
+    lanes), 16 and 64 16-byte column groups; at s = 16 an X that is not
+    16-byte aligned takes the one-column path too."""
+    A = _ragged(per_row)
+    n, m = A.shape
+    B = to_bcsr(A, tdt, device=card)
+    X = torch.as_tensor(np.random.RandomState(s).randn(m, s)).to(xdt)
+    xs = [X.to(card)]
+    if s == 16:
+        buf = torch.empty(m * s + 1, dtype=xdt, device=card)
+        buf[1:].copy_(xs[0].reshape(-1))
+        xs.append(buf[1:].view(m, s))
+    for x in xs:
+        before = hk.LAUNCHES["bcsr_spmv_multirhs"]
+        y = B @ x
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["bcsr_spmv_multirhs"] == before + 1
+        assert y.shape == (n, s)
+        assert _rel(y, hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values,
+                                          x, n)) <= LIMIT[y.dtype]
+        # column q of the block product is the 1-RHS product of column q
+        y1 = B @ x[:, s - 1].contiguous()
+        assert _rel(y[:, s - 1], y1) <= LIMIT[y.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 50), (100, 50)])
+def test_bcsr_kernels_on_empty_matrices(card, shape):
+    """No rows, or rows with no nonzero: y is empty or zero."""
+    B = to_bcsr(sp.csr_matrix(shape), torch.float32, device=card)
+    for x in (torch.ones(shape[1], device=card),
+              torch.ones(shape[1], 16, device=card)):
+        y = B @ x
+        torch.cuda.synchronize()
+        assert y.shape == (shape[0],) + tuple(x.shape[1:])
+        assert not y.any()
+
+
+@pytest.mark.cuda
+def test_bcsr_kernels_reject_what_they_do_not_take(card):
+    A = _ragged(3, n=1000, m=500)
+    B = to_bcsr(A, torch.float32, device=card)
+    with pytest.raises(ValueError, match="s <= 64"):
+        B @ torch.ones(500, 65, device=card)
+    with pytest.raises(ValueError, match="devices"):
+        B @ torch.ones(500)
+    with pytest.raises(ValueError, match="devices"):
+        hk.bcsr_spmv_multirhs(B.row_ptr, B.col_idx, B.values.cpu(),
+                              torch.ones(500, 2, device=card), 1000)
+    Bd = to_bcsr(A, torch.float64, device=card)
+    with pytest.raises(ValueError, match="dtypes"):
+        Bd @ torch.ones(500, device=card)
+    with pytest.raises(ValueError, match="dtypes"):
+        B @ torch.ones(500, 4, device=card, dtype=torch.float64)
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ interpret mode (DIA SpMV, fused Jacobi sweep) or, for BCSR, which has no
 interpret mode, against BcsrMatrix.matvec and the einsum reference of
 tests/test_pallas.py.  Inputs come from numpy seeds."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 from parelag_tpu.ops import device_sparse as jds
 from parelag_tpu.ops.pallas_kernels import (
     dia_jacobi_sweep_pallas, dia_spmv_pallas, dia_xpad_len)
+from parelag_tpu_torch import convert
 from parelag_tpu_torch.ops import device_sparse as tds
 from parelag_tpu_torch.ops import hopper_kernels as hk
 
@@ -123,40 +125,111 @@ def _random_transfer(rng, n, m):
                          shape=(n, m))
 
 
+def _tile_nonzeros(Bj):
+    """The nonzeros of a JAX BcsrMatrix's tiles in (row, column) order:
+    (row_ptr, col_idx, values) as numpy."""
+    tiles = np.asarray(Bj.tiles)
+    rb, k, r, c = np.nonzero(tiles)
+    rows = rb * 8 + r
+    cols = np.asarray(Bj.col_blocks)[rb, k].astype(np.int64) * 128 + c
+    order = np.lexsort((cols, rows))
+    counts = np.bincount(rows, minlength=Bj.shape[0])
+    return (np.concatenate([[0], np.cumsum(counts)]), cols[order],
+            tiles[rb, k, r, c][order])
+
+
+def _assert_buffers(Bt, row_ptr, col_idx, values):
+    np.testing.assert_array_equal(Bt.row_ptr.numpy(), row_ptr)
+    np.testing.assert_array_equal(Bt.col_idx.numpy(), col_idx)
+    np.testing.assert_array_equal(_np(Bt.values), values)
+    assert Bt.row_ptr.dtype == Bt.col_idx.dtype == torch.int32
+
+
 @pytest.mark.parametrize("shape", [(300, 700), (1000, 129)])
 def test_bcsr_plain_matches_jax_matvec(shape):
+    """The port's compact buffers hold exactly the nonzeros of the JAX
+    tiles, in row order, and no tiles."""
     rng = np.random.RandomState(1)
     A = _random_transfer(rng, *shape)
     Bj = jds.to_bcsr(A, dtype=np.float64)
     Bt = tds.to_bcsr(A, dtype=np.float64, device="cpu")
-    np.testing.assert_array_equal(Bt.col_blocks.numpy(),
-                                  np.asarray(Bj.col_blocks))
-    np.testing.assert_array_equal(Bt.tiles.numpy(), np.asarray(Bj.tiles))
+    _assert_buffers(Bt, *_tile_nonzeros(Bj))
+    assert not hasattr(Bt, "tiles")
+    assert {n for n, _ in Bt.named_buffers()} == {"row_ptr", "col_idx",
+                                                   "values"}
     assert (Bt.shape, Bt.padded) == (Bj.shape, Bj.padded)
+    assert (Bt.nbr, Bt.kb) == tuple(Bj.col_blocks.shape)
     assert tds.bcsr_stats(A) == jds.bcsr_stats(A)
     x = rng.randn(shape[1])
     yj = np.asarray(Bj.matvec(jnp.asarray(x)))
     assert _rel(_np(Bt @ torch.as_tensor(x)), yj) < 1e-12
-    # bf16 tiles with an f32 x (the cycle's P @ ec mix): f32 result,
-    # within bf16 rounding of the tiles (2^-8 relative)
+    # bf16 values with an f32 x (the cycle's P @ ec mix): f32 result,
+    # within 2^-8 of the JAX product on bf16 tiles (the same bf16 values,
+    # summed in another order) and within bf16 rounding of A @ x
     Btb = tds.to_bcsr(A, dtype=torch.bfloat16, device="cpu")
-    yb = Btb @ torch.as_tensor(x.astype(np.float32))
+    xf = x.astype(np.float32)
+    yb = Btb @ torch.as_tensor(xf)
     assert yb.dtype == torch.float32
+    yjb = np.asarray(jds.to_bcsr(A, dtype=jnp.bfloat16).matvec(
+        jnp.asarray(xf)))
+    assert _rel(_np(yb), yjb) < 2.0 ** -8
     assert _rel(_np(yb), A @ x) < 1e-2
 
 
 def test_bcsr_plain_matches_einsum_reference():
     """The reference of tests/test_pallas.py:52 on random tiles and
-    column blocks, f64 (1e-12)."""
+    column blocks (a block may repeat within a row block), through the
+    tiles constructor, f64 (1e-12)."""
     rng = np.random.RandomState(0)
     cb = rng.randint(0, 4, size=(16, 3)).astype(np.int32)
     tiles = rng.randn(16, 3, 8, 128)
     x = rng.randn(4 * 128)
     ref = np.einsum("nkrc,nkc->nr", tiles,
                     x.reshape(4, 128)[cb]).reshape(-1)
-    y = hk.bcsr_spmv(torch.as_tensor(cb), torch.as_tensor(tiles),
-                     torch.as_tensor(x), 16 * 8)
+    B = tds.BcsrMatrix.from_tiles(torch.as_tensor(cb),
+                                  torch.as_tensor(tiles), (128, 512),
+                                  (128, 512))
+    # the nonzeros of the tiles, a repeated block's columns counted once
+    assert B.values.numel() == sum(len({int(b) for b in row}) * 128
+                                   for row in cb) * 8
+    y = hk.bcsr_spmv(B.row_ptr, B.col_idx, B.values, torch.as_tensor(x),
+                     16 * 8)
     assert _rel(_np(y), ref) < 1e-12
+    assert _rel(_np(B @ torch.as_tensor(x)), ref) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_bcsr_convert_matches_to_bcsr(dtype):
+    """convert._matrix of a JAX BcsrMatrix gives the buffers and the
+    product of to_bcsr on the same scipy matrix."""
+    rng = np.random.RandomState(5)
+    A = _random_transfer(rng, 450, 1000)
+    Bj = jax.tree_util.tree_map(np.asarray, jds.to_bcsr(A, dtype=dtype))
+    Bc = convert._matrix(Bj, "cpu")
+    Bt = tds.to_bcsr(A, dtype=dtype, device="cpu")
+    _assert_buffers(Bc, Bt.row_ptr.numpy(), Bt.col_idx.numpy(),
+                    _np(Bt.values))
+    assert (Bc.shape, Bc.padded, Bc.nbr, Bc.kb, Bc.group) == \
+        (Bt.shape, Bt.padded, Bt.nbr, Bt.kb, Bt.group)
+    x = torch.as_tensor(rng.randn(1000).astype(dtype))
+    np.testing.assert_array_equal(_np(Bc @ x), _np(Bt @ x))
+
+
+@pytest.mark.parametrize("per_row,group", [(0, 2), (1, 2), (3, 4),
+                                           (26, 16), (30, 16), (200, 16)])
+def test_bcsr_group_width(per_row, group):
+    """Lanes per row of the 1-RHS kernel: the power of two that covers
+    the mean nonzeros per row, from 2 up to 16."""
+    n, m = 40, 600
+    rng = np.random.RandomState(per_row)
+    cols = np.stack([rng.choice(m, per_row, replace=False)
+                     for _ in range(n)]).ravel()
+    A = sp.csr_matrix((np.ones(n * per_row),
+                       (np.repeat(np.arange(n), per_row), cols)),
+                      shape=(n, m))
+    B = tds.to_bcsr(A, dtype=np.float64, device="cpu")
+    assert B.values.numel() == n * per_row
+    assert hk.group_width(n * per_row, n) == B.group == group
 
 
 def test_tilecoo_and_ell_match_jax():
@@ -182,5 +255,6 @@ def test_formats_cast_floating_buffers_only():
         Mb = M.to(torch.bfloat16)
         assert Mb.dtype == torch.bfloat16
         for name, buf in Mb.named_buffers():
-            if name in ("col_blocks", "row_blocks", "indices"):
+            if name in ("col_blocks", "row_blocks", "indices", "row_ptr",
+                        "col_idx"):
                 assert buf.dtype == torch.int32

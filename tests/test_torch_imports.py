@@ -62,8 +62,9 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     v = torch.ones(D.shape[0])
     hk.dia_spmv(D.data, D.offs, v, D.shape[0])
     hk.dia_jacobi_sweep(D.data, D.offs, v, v, v)
-    hk.bcsr_spmv(torch.zeros((1, 1), dtype=torch.int32),
-                 torch.ones((1, 1, 8, 128)), torch.ones(128), 8)
+    hk.bcsr_spmv(torch.tensor([0, 1], dtype=torch.int32),
+                 torch.zeros(1, dtype=torch.int32), torch.ones(1),
+                 torch.ones(128), 1)
     assert hk.LAUNCHES == before
     assert hk._LIB is None
 

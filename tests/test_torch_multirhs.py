@@ -134,7 +134,7 @@ def test_bcsr_and_tilecoo_2d_match_jax(s):
         assert yt.shape == (500, s)
         assert _rel(_np(yt), np.asarray(jm.matvec(jnp.asarray(X)))) < 1e-12
     Bt = tds.to_bcsr(A, dtype=np.float64, device="cpu")
-    assert _rel(_np(hk.bcsr_spmv_multirhs(Bt.col_blocks, Bt.tiles,
+    assert _rel(_np(hk.bcsr_spmv_multirhs(Bt.row_ptr, Bt.col_idx, Bt.values,
                                           torch.as_tensor(X), 500)),
                 A @ X) < 1e-12
     # bf16 tiles with an f32 block (the cycle's P @ ec): f32 result

@@ -162,7 +162,7 @@ def test_transfer_format_keys_on_device(chain):
                             dtype=np.float32, matrix_format="dia",
                             transfer_dtype=torch.bfloat16, device="meta")
     assert {type(l.P).__name__ for l in Hm.levels[:-1]} == {"BcsrMatrix"}
-    assert Hm.levels[0].P.tiles.dtype == torch.bfloat16
+    assert Hm.levels[0].P.values.dtype == torch.bfloat16
     assert Hm.levels[0].A.data.device.type == "meta"
     assert [type(l.A).__name__ for l in Hm.levels] == ["DiaMatrix"] * 3
 
