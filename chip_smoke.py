@@ -178,6 +178,14 @@ def _compare(name, variant, kernel, plain, nbytes, flops, format_bytes,
     return row
 
 
+def _plan_tag(D, sweep):
+    """The staging plan of the multi-RHS DIA kernels on D at N_RHS
+    columns: row tile, column slice, windows, shared bytes a block."""
+    p = hk.dia_stage_plan(D.offs, N_RHS, D.dtype, sweep)
+    return (f"R={p.rows} C={p.cols} windows={len(p.windows)} "
+            f"smem={p.smem_bytes}")
+
+
 def _dia_rows(rows, A0, dev, rng):
     """The DIA kernels, 1 and N_RHS columns, f32 and bf16, on the fine
     flagship operator.  The function needs A0's nonzeros and the
@@ -197,6 +205,7 @@ def _dia_rows(rows, A0, dev, rng):
         X, B = (v.to(dt) for v in vs)
         mat = nnz * x.element_size() + 4 * nd
         fl1, fls = 2 * nnz, 2 * nnz * N_RHS
+        ps, pj = (_plan_tag(D, sweep) for sweep in (False, True))
         rows["dia_spmv"].append(_compare(
             "dia_spmv", f"A0 {tag} nd={nd} n={n}",
             lambda: hk.dia_spmv(D.data, D.offs, x, n),
@@ -210,14 +219,14 @@ def _dia_rows(rows, A0, dev, rng):
             mat + _nbytes(x, b, d, x), fl1 + 3 * n,
             _nbytes(D.data, x, b, d, x), library_note=JACOBI_NOTE))
         rows["dia_spmv_multirhs"].append(_compare(
-            "dia_spmv_multirhs", f"A0 {tag} nd={nd} n={n} s={N_RHS}",
+            "dia_spmv_multirhs", f"A0 {tag} nd={nd} n={n} s={N_RHS} {ps}",
             lambda: hk.dia_spmv_multirhs(D.data, D.offs, X, n),
             lambda: hk.dia_spmv_plain(D.data, D.offs, X, n),
             mat + _nbytes(X, X), fls, _nbytes(D.data, X, X),
             lambda: csr @ X))
         rows["dia_jacobi_sweep_multirhs"].append(_compare(
             "dia_jacobi_sweep_multirhs",
-            f"A0 {tag} one sweep n={n} s={N_RHS}",
+            f"A0 {tag} one sweep n={n} s={N_RHS} {pj}",
             lambda: hk.dia_jacobi_sweep_multirhs(D.data, D.offs, X, B, d),
             lambda: hk.dia_jacobi_sweep_plain(D.data, D.offs, X, B, d),
             mat + _nbytes(X, B, d, X), fls + 3 * n * N_RHS,

@@ -6,11 +6,11 @@
 // ::dia_jacobi_sweep_multirhs_pallas.  The table is row aligned:
 // data[d * ld + i] multiplies x[i + offs[d]].  On the TPU the kernels
 // kept a padded x in VMEM and took static slices of a 1024-aligned
-// superblock; here each thread owns one row (the s-column kernels below:
-// one row and a group of its columns), reads its nd coefficients
-// (neighbouring threads on neighbouring addresses, so every table read is
-// one coalesced stream) and gathers x[i + off] with a bounds check
-// instead of a padded x.
+// superblock; here each thread of the 1-RHS kernels owns one row, reads
+// its nd coefficients (neighbouring threads on neighbouring addresses, so
+// every table read is one coalesced stream) and gathers x[i + off] with a
+// bounds check instead of a padded x.  The s-column kernels below stage
+// the X rows of a tile in shared memory first (see there).
 //
 // Bound on Hopper: device-memory bytes.  A matvec reads the nd x n table
 // once (nd = 27 on the H1 grid) plus x and y; the nd shifted x reads of
@@ -146,29 +146,109 @@ extern "C" int dia_jacobi_sweep_launch(int dtype, const void* data,
 //
 // X is (m, s) row-major, the layout pcg and the V-cycle hold; the TPU
 // kernels took a transposed (s, xlen) copy because Mosaic shifts along
-// lanes, which this card does not need.  One thread per (row, group of W
-// neighbouring columns), the groups of a row on neighbouring threads: each
-// thread reads the coefficient data[d, i] once for its W columns (the
-// G = s / W threads of a row read the same address, one broadcast, so the
-// table crosses device memory once for all s columns, the point of the
-// kernel) and W columns of X[i + off, :] as one 16-byte load, so the X
-// loads of a warp are one contiguous run.  W = 16 bytes / element (4 f32,
-// 8 bf16, 2 f64) when s is a multiple of it and the tensors are 16-byte
-// aligned, else W = 1.  Bound: bytes, table + X + Y (+ B for the sweep):
-// at s = 16 on the 27-offset fine grid the table is ~46 % of them in f32.
-// s <= 64 (the JAX module's _MAX_RHS), checked by the wrapper.
+// lanes, which this card does not need.  Bound: bytes, table + X + Y
+// (+ B and dw for the sweep); at s = 16 on the 27-offset fine grid the
+// table is ~46 % of them in f32.
+//
+// X and the table staged in shared memory.  A block stages a tile of R
+// rows and a slice of C columns at a time.  The host plan
+// (ops/hopper_kernels.py::dia_stage_plan) merges the sorted offsets into
+// windows (neighbours join while their gap is below R); window k holds
+// the X rows [b + lo_k, b + R + hi_k) of the tile at row b, clipped to
+// [0, m) and zero outside, so the inner loop has no bounds check.  On the
+// 97^3 grid the 27 offsets make 3 windows (one per z-plane) of R + 196
+// rows, P = 97^2 rows apart, where a per-row kernel (each thread loading
+// X[i + off] from global memory) fetched each X row up to 27 times and
+// ran at a third of its bound.
+//
+// March.  Where the plan finds the windows equally long and spaced by a
+// period P (one per plane of a grid), the tile at b + P needs windows
+// 1..K-1 of the tile at b as its windows 0..K-2: the windows sit in a
+// ring of K slots and a block that takes the tile one plane up stages
+// only the new top window.  The work list orders tiles plane-fastest
+// ((slice, tile in the plane, plane)), and the grid is persistent (the
+// blocks that fit the card at once, each a contiguous run of the list),
+// so a block marches up a column of tiles and each X row crosses from
+// L2 to the SM ~(R + 196) / R times instead of 3 (R + 196) / R.  The
+// staging bandwidth, not the arithmetic, was what bound a block that
+// stages all K windows for each tile.
+//
+// Each tile stages its nd table rows too, R + 16 bytes each from the
+// 16-byte boundary at or below data[d, b] (rows of ld = n elements are
+// not 16-byte aligned; the compute skips the shift): read straight from
+// global memory, a warp's coefficient load fetched 32 bytes and too
+// few table bytes were in flight.  Every chunk is one 16-byte
+// cp.async.cg (zero-filled past the ends), all issued before one wait;
+// where a slice is all of X's columns a window is one contiguous run of
+// X and needs no per-row index.
+//
+// Then one thread per (kTR rows, W-column group): W = 16 bytes /
+// element, the G threads of a row read one broadcast coefficient (the
+// table crosses device memory once for each column slice, once in all
+// when C = s).  The plan also cuts the offsets into runs of up to kRun
+// consecutive offsets whose staged X rows are consecutive (the c = -1,
+// 0, 1 of a 27-point stencil line): a run of L offsets reads the
+// kTR + L - 1 X rows it spans once each, so one line costs 5 X loads
+// for 9 row-offset products, and its L kTR coefficients are loaded
+// before the products.  Sums run in the offset order of the table.
+// Shapes the 16-byte path does not take (s * sizeof(T) not a multiple
+// of 16, or an (n, s) tensor not 16-byte aligned) stage X element by
+// element and compute one column per thread.  s <= 64 (the JAX module's
+// _MAX_RHS) and nd <= 48, checked by the wrapper; the table must be
+// 16-byte aligned, as every allocation is.
+//
+// Measurement hook (kernel_profile.py --ablate): built with
+// -DDIA_STAGE_ABLATE=1 the kernels skip the sums (the fill and the
+// stores remain), with =2 they skip the copies of the contiguous path
+// into shared memory (the compute runs on what is there).  Their results
+// are then wrong; the default build has neither.
 
-// W elements of T at p, widened to the accumulator type (W = 1: one
-// element; W > 1: one 16-byte load of an aligned run)
+#define DIA_MAX_WIN (DIA_MAX_OFFS + 1)
+
+// the plan, by value (ctypes mirror: hopper_kernels._DiaStage)
+struct DiaStage {
+    int rows;               // R: tile rows
+    int cols;               // C: slice columns
+    int nwin;               // K: windows
+    int sweep;              // sh[nd] and wof[nd] locate X[i] (the sweep)
+    int tstride;            // staged table row: R + 16 bytes of elements
+    int period;             // P of the march, or 0
+    int nrun;               // runs of offsets
+    int lo[DIA_MAX_WIN];    // window k starts at X row b + lo[k] ...
+    int len[DIA_MAX_WIN];   // ... and holds len[k] = R + hi_k - lo_k rows
+    int base[DIA_MAX_WIN];  // first staged row of slot k (stride: the slice)
+    int sh[DIA_MAX_WIN];    // staged row of X[i + offs[d]] minus i's tile row
+    int wof[DIA_MAX_WIN];   // window of offset d
+    int run_d0[DIA_MAX_WIN];   // run j: offsets run_d0[j] ...
+    int run_len[DIA_MAX_WIN];  // ... to run_d0[j] + run_len[j] - 1
+};
+
+// the most dynamic shared memory a block of these kernels may take (an
+// H100 block's 227 KB less room for their static per-offset rows); the
+// plan aims at two blocks per SM
+static const int kStageMaxBytes = 232448 - 256;
+static const int kStageThreads = 384;
+// rows per thread (odd: a quarter-warp's 16-byte reads of 32- and 64-byte
+// X rows then fall on distinct banks) and the longest run
+static const int kTR = 3;
+static const int kRun = 3;
+
+// W elements of T: fetch() reads them (W > 1: one 16-byte load of an
+// aligned run) as Raw, unpack() widens them to the accumulator type
 template <typename T, int W> struct Cols;
 template <typename T> struct Cols<T, 1> {
     using A = typename AccOf<T>::type;
-    __device__ static void load(const T* p, A (&v)[1]) { v[0] = widen(*p); }
+    using Raw = T;
+    __device__ static Raw fetch(const T* p) { return *p; }
+    __device__ static void unpack(Raw q, A (&v)[1]) { v[0] = widen(q); }
     __device__ static void store(T* p, const A (&v)[1]) { narrow(p, v[0]); }
 };
 template <> struct Cols<float, 4> {
-    __device__ static void load(const float* p, float (&v)[4]) {
-        const float4 q = *reinterpret_cast<const float4*>(p);
+    using Raw = float4;
+    __device__ static Raw fetch(const float* p) {
+        return *reinterpret_cast<const float4*>(p);
+    }
+    __device__ static void unpack(Raw q, float (&v)[4]) {
         v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
     }
     __device__ static void store(float* p, const float (&v)[4]) {
@@ -176,8 +256,11 @@ template <> struct Cols<float, 4> {
     }
 };
 template <> struct Cols<double, 2> {
-    __device__ static void load(const double* p, double (&v)[2]) {
-        const double2 q = *reinterpret_cast<const double2*>(p);
+    using Raw = double2;
+    __device__ static Raw fetch(const double* p) {
+        return *reinterpret_cast<const double2*>(p);
+    }
+    __device__ static void unpack(Raw q, double (&v)[2]) {
         v[0] = q.x; v[1] = q.y;
     }
     __device__ static void store(double* p, const double (&v)[2]) {
@@ -185,8 +268,11 @@ template <> struct Cols<double, 2> {
     }
 };
 template <> struct Cols<__nv_bfloat16, 8> {
-    __device__ static void load(const __nv_bfloat16* p, float (&v)[8]) {
-        const uint4 q = *reinterpret_cast<const uint4*>(p);
+    using Raw = uint4;
+    __device__ static Raw fetch(const __nv_bfloat16* p) {
+        return *reinterpret_cast<const uint4*>(p);
+    }
+    __device__ static void unpack(Raw q, float (&v)[8]) {
         const unsigned w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -207,176 +293,501 @@ template <> struct Cols<__nv_bfloat16, 8> {
     }
 };
 
-template <typename T, int W>
-__global__ void dia_spmv_mr_kernel(const T* __restrict__ data,
-                                   const T* __restrict__ x,
-                                   T* __restrict__ y,
-                                   const __grid_constant__ DiaOffs offs,
-                                   int nd, long long ld, int n, int m, int s) {
-    using A = typename AccOf<T>::type;
-    const int G = s / W;
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long i = t / G;
-    const int q = (int)(t - i * G) * W;
-    if (i >= n) return;
-    A acc[W], xv[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) acc[w] = A(0);
-    for (int d = 0; d < nd; ++d) {
-        const long long j = i + offs.v[d];
-        if (j >= 0 && j < m) {
-            const A c = widen(data[d * ld + i]);
-            Cols<T, W>::load(x + j * s + q, xv);
-#pragma unroll
-            for (int w = 0; w < W; ++w) acc[w] += c * xv[w];
-        }
-    }
-    Cols<T, W>::store(y + i * s + q, acc);
+// 16 bytes global -> shared, bypassing L1; src_bytes < 16 zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(src_bytes));
 }
 
-// X'[i, q] = X[i, q] + dw[i] * (B[i, q] - sum_d data[d, i] X[i + off_d, q])
-template <typename T, int W>
-__global__ void dia_jacobi_mr_kernel(const T* __restrict__ data,
-                                     const T* __restrict__ x,
-                                     const T* __restrict__ b,
-                                     const T* __restrict__ dw,
-                                     T* __restrict__ xout,
-                                     const __grid_constant__ DiaOffs offs,
-                                     int nd, long long ld, int n, int s) {
-    using A = typename AccOf<T>::type;
-    const int G = s / W;
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long i = t / G;
-    const int q = (int)(t - i * G) * W;
-    if (i >= n) return;
-    A acc[W], xv[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) acc[w] = A(0);
-    for (int d = 0; d < nd; ++d) {
-        const long long j = i + offs.v[d];
-        if (j >= 0 && j < n) {
-            const A c = widen(data[d * ld + i]);
-            Cols<T, W>::load(x + j * s + q, xv);
-#pragma unroll
-            for (int w = 0; w < W; ++w) acc[w] += c * xv[w];
-        }
-    }
-    A bv[W];
-    Cols<T, W>::load(x + i * s + q, xv);
-    Cols<T, W>::load(b + i * s + q, bv);
-    const A di = widen(dw[i]);
-#pragma unroll
-    for (int w = 0; w < W; ++w) acc[w] = xv[w] + di * (bv[w] - acc[w]);
-    Cols<T, W>::store(xout + i * s + q, acc);
+// One tile of the work list: rows [b, b + valid) of the output, columns
+// [q0, q0 + cw); rot: window k sits in slot (k + rot) % K; fresh: every
+// window is staged, else only the top one (the march)
+struct StageTile {
+    long long b;
+    int valid, q0, cw, rot;
+    bool fresh;
+};
+
+// Tile w of the list (slice, tile in the plane, plane), plane fastest; a
+// plan without a march has one "plane" of all the tiles
+__device__ __forceinline__ StageTile stage_tile_at(const DiaStage& p,
+                                                   long long w, bool first,
+                                                   int prev_rot, int n,
+                                                   int s) {
+    const int per_plane = p.period > 0 ? (p.period + p.rows - 1) / p.rows
+                                       : (n + p.rows - 1) / p.rows;
+    const int planes = p.period > 0 ? (n + p.period - 1) / p.period : 1;
+    const int plane = (int)(w % planes);
+    const long long rest = w / planes;
+    const int xt = (int)(rest % per_plane);
+    StageTile t;
+    t.q0 = (int)(rest / per_plane) * p.cols;
+    t.cw = min(p.cols, s - t.q0);
+    t.b = (long long)xt * p.rows + (long long)plane * p.period;
+    long long valid = p.rows;
+    if (p.period > 0) valid = min(valid, (long long)p.period - xt * p.rows);
+    valid = min(valid, (long long)n - t.b);
+    t.valid = (int)valid;
+    t.fresh = first || plane == 0 || p.period == 0;
+    t.rot = t.fresh ? 0 : (prev_rot + 1) % p.nwin;
+    return t;
 }
 
-// columns per thread: a 16-byte run when s and every (n, s) tensor allow
+// Stage tile t: its table rows into ts (row d at d * tstride, from the
+// 16-byte boundary at or below data[d * ld + b]), its windows (all, or
+// the top one) of X into their slots of xs (row stride cw, zero outside
+// [0, m)), and shs[d] = the staged row of X[i + offs[d]] minus i's tile
+// row for this rotation; then wait for all of it.
+template <typename T, int W>
+__device__ __forceinline__ void stage_tile(T* ts, T* xs, int* shs,
+                                           const T* __restrict__ data,
+                                           const T* __restrict__ x,
+                                           const DiaStage& p, int nd,
+                                           long long ld, const StageTile& t,
+                                           int m, int s) {
+    using A = typename AccOf<T>::type;
+    const int K = p.nwin;
+    for (int d = threadIdx.x; d <= nd; d += blockDim.x) {
+        const int k = p.wof[d];
+        shs[d] = p.sh[d] - p.base[k] + p.base[(k + t.rot) % K];
+    }
+    const int V = 16 / (int)sizeof(T);
+    const long long tend = nd * ld;          // elements of the table
+    {
+        // chunk c of table row d, stepping (d, c) by blockDim.x chunks
+        const int tchunks = p.tstride / V;
+        const int dd = blockDim.x / tchunks, dc = blockDim.x % tchunks;
+        int d = threadIdx.x / tchunks, c = threadIdx.x % tchunks;
+        while (d < nd) {
+            const long long g = (d * ld + t.b) / V * V + c * V;
+            const long long left = (tend - g) * (long long)sizeof(T);
+            const int bytes = left >= 16 ? 16 : (left > 0 ? (int)left : 0);
+#if DIA_STAGE_ABLATE != 2
+            cp_async16(ts + d * p.tstride + c * V, bytes ? data + g : data,
+                       bytes);
+#endif
+            d += dd;
+            c += dc;
+            if (c >= tchunks) { c -= tchunks; ++d; }
+        }
+    }
+    const int per_row = t.cw / W;
+    for (int k = t.fresh ? 0 : K - 1; k < K; ++k) {
+        const long long g0 = t.b + p.lo[k];
+        T* dst = xs + (long long)p.base[(k + t.rot) % K] * t.cw;
+        if (W > 1 && t.cw == s) {
+            // all columns: the window is one contiguous run of X, and a
+            // 16-byte chunk never straddles two rows
+            const long long e0 = g0 * s, eend = (long long)m * s;
+            const int total = p.len[k] * s / V;
+            for (int e = threadIdx.x; e < total; e += blockDim.x) {
+                const long long q = e0 + (long long)e * V;
+                const bool in = q >= 0 && q < eend;
+#if DIA_STAGE_ABLATE != 2
+                cp_async16(dst + e * V, in ? x + q : x, in ? 16 : 0);
+#endif
+            }
+            continue;
+        }
+        const int total = p.len[k] * per_row;
+        for (int e = threadIdx.x; e < total; e += blockDim.x) {
+            const int row = e / per_row;
+            const int c = (e - row * per_row) * W;
+            const long long g = g0 + row;
+            const bool in = g >= 0 && g < m;
+            const T* src = in ? x + g * s + t.q0 + c : x;
+            if (W > 1)
+                cp_async16(dst + row * t.cw + c, src, in ? 16 : 0);
+            else
+                narrow(dst + row * t.cw + c, in ? widen(*src) : A(0));
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+}
+
+// One run of L offsets: acc[t] += coefficient(d0 + j, row r + t) times X
+// row r + t + j of the run (xr: its first staged row, at the column
+// group), for j < L.  Each X row is read once and feeds the products it
+// takes part in; acc[t] still takes them in offset order (j rises with
+// the row).  tr: the staged table row d0 at tile row r; shift: the
+// 16-byte shift of row d0, ldv: how much it moves a row.
+template <typename T, int W, int L>
+__device__ __forceinline__ void run_sum(
+        const T* tr, int tstride, int shift, int ldv, const T* xr, int cw,
+        typename AccOf<T>::type (&acc)[kTR][W]) {
+    using A = typename AccOf<T>::type;
+    constexpr int V = 16 / (int)sizeof(T);
+    A c[L][kTR];
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+        const T* cj = tr + j * tstride + ((shift + j * ldv) & (V - 1));
+#pragma unroll
+        for (int t = 0; t < kTR; ++t) c[j][t] = widen(cj[t]);
+    }
+#pragma unroll
+    for (int u = 0; u < kTR + L - 1; ++u) {
+        A xv[W];
+        Cols<T, W>::unpack(Cols<T, W>::fetch(xr + u * cw), xv);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+            const int t = u - j;
+            if (t < 0 || t >= kTR) continue;
+#pragma unroll
+            for (int w = 0; w < W; ++w) acc[t][w] += c[j][t] * xv[w];
+        }
+    }
+}
+
+// acc[t] = sum over d of the staged coefficient of tile row r + t times
+// the W columns of staged X row r + t + shs[d] (xq: the column group's
+// first staged element), in offset order, run by run
+template <typename T, int W>
+__device__ __forceinline__ void staged_rows_sum(
+        const T* ts, const T* xq, const int* shs, const DiaStage& p,
+        long long ld, long long b, int r, int cw,
+        typename AccOf<T>::type (&acc)[kTR][W]) {
+    using A = typename AccOf<T>::type;
+    constexpr int V = 16 / (int)sizeof(T);
+    const int ldv = (int)(ld & (V - 1));
+    const int shift0 = (int)(b & (V - 1));   // data[d * ld + b] mod V
+#pragma unroll
+    for (int t = 0; t < kTR; ++t)
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[t][w] = A(0);
+#if DIA_STAGE_ABLATE == 1
+    return;
+#endif
+    for (int k = 0; k < p.nrun; ++k) {
+        const int d0 = p.run_d0[k];
+        const T* tr = ts + d0 * p.tstride + r;
+        const T* xr = xq + (r + shs[d0]) * cw;
+        const int shift = (shift0 + d0 * ldv) & (V - 1);
+        switch (p.run_len[k]) {
+            case 3:
+                run_sum<T, W, 3>(tr, p.tstride, shift, ldv, xr, cw, acc);
+                break;
+            case 2:
+                run_sum<T, W, 2>(tr, p.tstride, shift, ldv, xr, cw, acc);
+                break;
+            default:
+                run_sum<T, W, 1>(tr, p.tstride, shift, ldv, xr, cw, acc);
+        }
+    }
+}
+
+// The block's run of the work list: [w0, w1)
+__device__ __forceinline__ void stage_run(long long work, long long& w0,
+                                          long long& w1) {
+    w0 = blockIdx.x * work / gridDim.x;
+    w1 = (blockIdx.x + 1) * work / gridDim.x;
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kStageThreads, 2)
+dia_spmv_staged_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                       T* __restrict__ y, const __grid_constant__ DiaStage p,
+                       int nd, long long ld, int n, int m, int s,
+                       long long work) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int shs[DIA_MAX_WIN];
+    T* ts = reinterpret_cast<T*>(smem);
+    T* xs = ts + nd * p.tstride;
+    using A = typename AccOf<T>::type;
+    long long w0, w1;
+    stage_run(work, w0, w1);
+    int rot = 0;
+    for (long long w = w0; w < w1; ++w) {
+        const StageTile t = stage_tile_at(p, w, w == w0, rot, n, s);
+        rot = t.rot;
+        stage_tile<T, W>(ts, xs, shs, data, x, p, nd, ld, t, m, s);
+        const int G = t.cw / W;
+        for (int it = threadIdx.x; it < p.rows / kTR * G; it += blockDim.x) {
+            const int r = it / G * kTR;
+            if (r >= t.valid) break;
+            const int q = (it - r / kTR * G) * W;
+            A acc[kTR][W];
+            staged_rows_sum<T, W>(ts, xs + q, shs, p, ld, t.b, r, t.cw, acc);
+#pragma unroll
+            for (int u = 0; u < kTR; ++u)
+                if (r + u < t.valid)
+                    Cols<T, W>::store(y + (t.b + r + u) * s + t.q0 + q,
+                                      acc[u]);
+        }
+        __syncthreads();                     // before the next stage
+    }
+}
+
+// X'[i, q] = X[i, q] + dw[i] * (B[i, q] - sum_d data[d, i] X[i + off_d, q]);
+// X[i] comes from the staged windows (shs[nd]); B and dw are fetched
+// before the sum, so their loads overlap it
+template <typename T, int W>
+__global__ void __launch_bounds__(kStageThreads, 2)
+dia_jacobi_staged_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                         const T* __restrict__ b, const T* __restrict__ dw,
+                         T* __restrict__ xout,
+                         const __grid_constant__ DiaStage p, int nd,
+                         long long ld, int n, int s, long long work) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int shs[DIA_MAX_WIN];
+    T* ts = reinterpret_cast<T*>(smem);
+    T* xs = ts + nd * p.tstride;
+    using A = typename AccOf<T>::type;
+    using C = Cols<T, W>;
+    long long w0, w1;
+    stage_run(work, w0, w1);
+    int rot = 0;
+    for (long long w = w0; w < w1; ++w) {
+        const StageTile t = stage_tile_at(p, w, w == w0, rot, n, s);
+        rot = t.rot;
+        stage_tile<T, W>(ts, xs, shs, data, x, p, nd, ld, t, n, s);
+        const int G = t.cw / W;
+        for (int it = threadIdx.x; it < p.rows / kTR * G; it += blockDim.x) {
+            const int r = it / G * kTR;
+            if (r >= t.valid) break;
+            const int q = (it - r / kTR * G) * W;
+            typename C::Raw braw[kTR];
+            T draw[kTR];
+#pragma unroll
+            for (int u = 0; u < kTR; ++u) {
+                // rows past the tile read row r (in range) and are not
+                // stored
+                const long long i = t.b + r + (r + u < t.valid ? u : 0);
+                braw[u] = C::fetch(b + i * s + t.q0 + q);
+                draw[u] = dw[i];
+            }
+            A acc[kTR][W];
+            staged_rows_sum<T, W>(ts, xs + q, shs, p, ld, t.b, r, t.cw, acc);
+#pragma unroll
+            for (int u = 0; u < kTR; ++u) {
+                if (r + u >= t.valid) continue;
+                const long long i = t.b + r + u;
+                A xv[W], bv[W];
+                C::unpack(C::fetch(xs + q + (r + u + shs[nd]) * t.cw), xv);
+                C::unpack(braw[u], bv);
+                const A di = widen(draw[u]);
+#pragma unroll
+                for (int w = 0; w < W; ++w)
+                    xv[w] = xv[w] + di * (bv[w] - acc[u][w]);
+                C::store(xout + i * s + t.q0 + q, xv);
+            }
+        }
+        __syncthreads();                     // before the next stage
+    }
+}
+
+// Checks the plan against the shapes and picks W: 16 bytes of columns
+// per thread when s, the slice and every (n, s) tensor allow, else 1.
+// Returns W, or -1 for a plan or a table the kernels cannot take.
 template <typename T>
-static int cols_per_thread(int s, const void* a, const void* b,
-                           const void* c) {
-    const int w = 16 / (int)sizeof(T);
+static int stage_width(const DiaStage& p, int nd, int s, const void* data,
+                       const void* a, const void* b, const void* c) {
+    const int v = 16 / (int)sizeof(T);
+    if (p.rows < 1 || p.cols < 1 || p.cols > s || p.nwin < 1
+        || p.nwin > DIA_MAX_WIN || nd < 1 || nd > DIA_MAX_OFFS
+        || p.rows % v != 0 || p.rows % kTR != 0 || p.tstride != p.rows + v
+        || p.period < 0
+        || (reinterpret_cast<unsigned long long>(data) & 15ull) != 0)
+        return -1;
+    long long rows = 0;
+    for (int k = 0; k < p.nwin; ++k) {
+        if (p.len[k] < p.rows || p.base[k] != rows) return -1;
+        if (p.period > 0 && (p.len[k] != p.len[0]
+                             || p.lo[k] - p.lo[0] != k * p.period))
+            return -1;
+        rows += p.len[k];
+    }
+    for (int d = 0; d < nd + p.sweep; ++d)
+        if (p.wof[d] < 0 || p.wof[d] >= p.nwin) return -1;
+    if (p.nrun < 1 || p.nrun > nd) return -1;
+    for (int k = 0, d = 0; k < p.nrun; d += p.run_len[k++])
+        if (p.run_d0[k] != d || p.run_len[k] < 1 || p.run_len[k] > kRun
+            || (k == p.nrun - 1 && d + p.run_len[k] != nd))
+            return -1;
+    if ((rows * p.cols + (long long)nd * p.tstride) * (long long)sizeof(T)
+        > kStageMaxBytes)
+        return -1;
     const bool aligned = ((reinterpret_cast<unsigned long long>(a)
                            | reinterpret_cast<unsigned long long>(b)
                            | reinterpret_cast<unsigned long long>(c))
                           & 15ull) == 0;
-    return (s % w == 0 && aligned) ? w : 1;
+    return (s % v == 0 && p.cols % v == 0 && aligned) ? v : 1;
 }
 
-static dim3 mr_grid(int n, int s, int w) {
-    const long long total = (long long)n * (s / w);
-    return dim3((unsigned)((total + kThreads - 1) / kThreads));
+static int stage_bytes(const DiaStage& p, int nd, int elem) {
+    return ((p.base[p.nwin - 1] + p.len[p.nwin - 1]) * p.cols
+            + nd * p.tstride) * elem;
+}
+
+// the work list's length: (column slices) x (tiles a plane) x (planes)
+static long long stage_work(const DiaStage& p, int n, int s) {
+    const long long slices = (s + p.cols - 1) / p.cols;
+    if (p.period == 0) return slices * ((n + p.rows - 1) / p.rows);
+    return slices * ((p.period + p.rows - 1) / p.rows)
+           * ((n + p.period - 1) / p.period);
+}
+
+static int stage_threads(const DiaStage& p, int w) {
+    const int items = p.rows / kTR * (p.cols / w);
+    return items >= kStageThreads ? kStageThreads : ((items + 31) / 32) * 32;
+}
+
+// The blocks of one staged kernel that fit the card at once, for each
+// launch shape it has met (the V-cycle alternates between its levels'):
+// the occupancy query costs more host time than a small level's kernel
+struct StageGrid {
+    static const int kSlots = 8;
+    int used = 0;
+    int dev[kSlots], threads[kSlots], bytes[kSlots];
+    long long fit[kSlots];
+};
+
+// Size the persistent grid: the blocks that fit the card at once, at
+// most one per tile.  A shape met first raises the kernel's dynamic
+// shared memory limit above the default 48 KB (to kStageMaxBytes, which
+// covers every plan) and asks for its occupancy.  Returns 0 or a CUDA
+// error.
+template <typename K>
+static int stage_grid(K kernel, StageGrid& c, int threads, int bytes,
+                      long long work, unsigned* grid) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    int i = 0;
+    while (i < c.used && (c.dev[i] != dev || c.threads[i] != threads
+                          || c.bytes[i] != bytes))
+        ++i;
+    if (i == c.used) {
+        int sms = 0, per_sm = 0;
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            kStageMaxBytes);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, threads, bytes);
+        if (e != cudaSuccess) return (int)e;
+        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        if (c.used < StageGrid::kSlots) ++c.used;
+        i = c.used - 1;                      // a full cache reuses its last
+        c.dev[i] = dev;
+        c.threads[i] = threads;
+        c.bytes[i] = bytes;
+        c.fit[i] = (long long)per_sm * sms;
+    }
+    *grid = (unsigned)(work < c.fit[i] ? work : c.fit[i]);
+    return 0;
 }
 
 template <typename T, int W>
-static void spmv_mr(const void* data, const void* x, void* y,
-                    const DiaOffs& o, int nd, long long ld, int n, int m,
-                    int s, cudaStream_t st) {
-    dia_spmv_mr_kernel<T, W><<<mr_grid(n, s, W), kThreads, 0, st>>>(
-        (const T*)data, (const T*)x, (T*)y, o, nd, ld, n, m, s);
+static int spmv_staged(const void* data, const void* x, void* y,
+                       const DiaStage& p, int nd, long long ld, int n, int m,
+                       int s, cudaStream_t st) {
+    const int bytes = stage_bytes(p, nd, sizeof(T));
+    const int threads = stage_threads(p, W);
+    const long long work = stage_work(p, n, s);
+    static StageGrid cache;
+    unsigned grid = 0;
+    const int e = stage_grid(dia_spmv_staged_kernel<T, W>, cache, threads,
+                             bytes, work, &grid);
+    if (e != 0) return e;
+    dia_spmv_staged_kernel<T, W><<<grid, threads, bytes, st>>>(
+        (const T*)data, (const T*)x, (T*)y, p, nd, ld, n, m, s, work);
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
-static void spmv_mr_any(const void* data, const void* x, void* y,
-                        const DiaOffs& o, int nd, long long ld, int n, int m,
-                        int s, cudaStream_t st) {
-    if (cols_per_thread<T>(s, x, y, y) > 1)
-        spmv_mr<T, 16 / sizeof(T)>(data, x, y, o, nd, ld, n, m, s, st);
-    else
-        spmv_mr<T, 1>(data, x, y, o, nd, ld, n, m, s, st);
+static int spmv_staged_any(const void* data, const void* x, void* y,
+                           const DiaStage& p, int nd, long long ld, int n,
+                           int m, int s, cudaStream_t st) {
+    const int w = stage_width<T>(p, nd, s, data, x, y, y);
+    if (w < 0) return (int)cudaErrorInvalidValue;
+    if (w > 1)
+        return spmv_staged<T, 16 / sizeof(T)>(data, x, y, p, nd, ld, n, m, s,
+                                              st);
+    return spmv_staged<T, 1>(data, x, y, p, nd, ld, n, m, s, st);
 }
 
 extern "C" int dia_spmv_multirhs_launch(int dtype, const void* data,
                                         const void* x, void* y,
-                                        const int* offs, int nd,
+                                        const DiaStage* plan, int nd,
                                         long long ld, int n, int m, int s,
                                         void* stream) {
-    DiaOffs o;
-    if (!pack_offs(&o, offs, nd) || n < 0 || m < 0 || s < 1)
-        return (int)cudaErrorInvalidValue;
+    if (n < 0 || m < 0 || s < 1) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
+    const DiaStage& p = *plan;
     cudaStream_t st = (cudaStream_t)stream;
     switch (dtype) {
         case DT_F32:
-            spmv_mr_any<float>(data, x, y, o, nd, ld, n, m, s, st);
-            break;
+            return spmv_staged_any<float>(data, x, y, p, nd, ld, n, m, s, st);
         case DT_BF16:
-            spmv_mr_any<__nv_bfloat16>(data, x, y, o, nd, ld, n, m, s, st);
-            break;
+            return spmv_staged_any<__nv_bfloat16>(data, x, y, p, nd, ld, n,
+                                                  m, s, st);
         case DT_F64:
-            spmv_mr_any<double>(data, x, y, o, nd, ld, n, m, s, st);
-            break;
+            return spmv_staged_any<double>(data, x, y, p, nd, ld, n, m, s,
+                                           st);
         default:
             return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }
 
 template <typename T, int W>
-static void jacobi_mr(const void* data, const void* x, const void* b,
-                      const void* dw, void* xout, const DiaOffs& o, int nd,
-                      long long ld, int n, int s, cudaStream_t st) {
-    dia_jacobi_mr_kernel<T, W><<<mr_grid(n, s, W), kThreads, 0, st>>>(
-        (const T*)data, (const T*)x, (const T*)b, (const T*)dw, (T*)xout, o,
-        nd, ld, n, s);
+static int jacobi_staged(const void* data, const void* x, const void* b,
+                         const void* dw, void* xout, const DiaStage& p,
+                         int nd, long long ld, int n, int s,
+                         cudaStream_t st) {
+    const int bytes = stage_bytes(p, nd, sizeof(T));
+    const int threads = stage_threads(p, W);
+    const long long work = stage_work(p, n, s);
+    static StageGrid cache;
+    unsigned grid = 0;
+    const int e = stage_grid(dia_jacobi_staged_kernel<T, W>, cache, threads,
+                             bytes, work, &grid);
+    if (e != 0) return e;
+    dia_jacobi_staged_kernel<T, W><<<grid, threads, bytes, st>>>(
+        (const T*)data, (const T*)x, (const T*)b, (const T*)dw, (T*)xout, p,
+        nd, ld, n, s, work);
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
-static void jacobi_mr_any(const void* data, const void* x, const void* b,
-                          const void* dw, void* xout, const DiaOffs& o,
-                          int nd, long long ld, int n, int s,
-                          cudaStream_t st) {
-    if (cols_per_thread<T>(s, x, b, xout) > 1)
-        jacobi_mr<T, 16 / sizeof(T)>(data, x, b, dw, xout, o, nd, ld, n, s,
-                                     st);
-    else
-        jacobi_mr<T, 1>(data, x, b, dw, xout, o, nd, ld, n, s, st);
+static int jacobi_staged_any(const void* data, const void* x, const void* b,
+                             const void* dw, void* xout, const DiaStage& p,
+                             int nd, long long ld, int n, int s,
+                             cudaStream_t st) {
+    const int w = stage_width<T>(p, nd, s, data, x, b, xout);
+    if (w < 0 || !p.sweep) return (int)cudaErrorInvalidValue;
+    if (w > 1)
+        return jacobi_staged<T, 16 / sizeof(T)>(data, x, b, dw, xout, p, nd,
+                                                ld, n, s, st);
+    return jacobi_staged<T, 1>(data, x, b, dw, xout, p, nd, ld, n, s, st);
 }
 
 extern "C" int dia_jacobi_sweep_multirhs_launch(int dtype, const void* data,
                                                 const void* x, const void* b,
                                                 const void* dw, void* xout,
-                                                const int* offs, int nd,
+                                                const DiaStage* plan, int nd,
                                                 long long ld, int n, int s,
                                                 void* stream) {
-    DiaOffs o;
-    if (!pack_offs(&o, offs, nd) || n < 0 || s < 1)
-        return (int)cudaErrorInvalidValue;
+    if (n < 0 || s < 1) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
+    const DiaStage& p = *plan;
     cudaStream_t st = (cudaStream_t)stream;
     switch (dtype) {
         case DT_F32:
-            jacobi_mr_any<float>(data, x, b, dw, xout, o, nd, ld, n, s, st);
-            break;
+            return jacobi_staged_any<float>(data, x, b, dw, xout, p, nd, ld, n,
+                                            s, st);
         case DT_BF16:
-            jacobi_mr_any<__nv_bfloat16>(data, x, b, dw, xout, o, nd, ld, n,
-                                         s, st);
-            break;
+            return jacobi_staged_any<__nv_bfloat16>(data, x, b, dw, xout, p,
+                                                    nd, ld, n, s, st);
         case DT_F64:
-            jacobi_mr_any<double>(data, x, b, dw, xout, o, nd, ld, n, s,
-                                  st);
-            break;
+            return jacobi_staged_any<double>(data, x, b, dw, xout, p, nd, ld,
+                                             n, s, st);
         default:
             return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }

@@ -3,6 +3,8 @@
     python -m parelag_tpu_torch.kernel_profile            # 96^3, 24^3
     python -m parelag_tpu_torch.kernel_profile --nx 32 --nx-maxwell 8
     python -m parelag_tpu_torch.kernel_profile --memory-only
+    python -m parelag_tpu_torch.kernel_profile --tune-rows 128,256,512
+    python -m parelag_tpu_torch.kernel_profile --ablate fill
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -21,11 +23,21 @@ torch.profiler (CPU and CUDA activities):
     idle share 1 - busy / wall, and device time by kernel;
   * kernels: LAUNCHES back-to-back calls of each hand-written kernel on
     the level-0 operators of those hierarchies (the main paths' largest
-    shapes): device microseconds per launch; for the BCSR and ELL
-    variants also library_device_us, the device time of one
+    shapes), and of the multi-RHS DIA pair on level 1 too: device
+    microseconds per launch; for every variant with a matrix operand
+    (DIA, BCSR, ELL) also library_device_us, the device time of one
     torch.sparse_csr_tensor product on the same matrix and x, summed
     over all device work of that call (null where the library takes no
-    mixed dtypes).
+    mixed dtypes, or computes no fused sweep); the multi-RHS DIA rows
+    carry their staging plan (hopper_kernels.dia_stage_plan);
+  * --tune-rows R1,R2,...: the level-0 multi-RHS DIA variants again with
+    the plan's row tile forced to each R (the shared-memory target
+    raised to the kernels' limit, so R is not cut), one row per R;
+  * --ablate compute|fill: builds the kernels with -DDIA_STAGE_ABLATE
+    (csrc/dia.cu) so the staged multi-RHS DIA kernels skip their sums
+    (compute) or their copies into shared memory (fill), and times only
+    their level-0 variants: the split of their time between the two
+    phases.  Those builds compute wrong results.
 
 Prints one JSON object per line: the card (nvidia-smi name and power
 limit, torch and CUDA versions), then {"solve": ...} and {"kernel": ...}
@@ -43,17 +55,22 @@ import numpy as np
 import torch
 
 from parelag_tpu_torch import device as pick_device, flagship, maxwell_lane
-from parelag_tpu_torch.ops import hopper_kernels as hk
+from parelag_tpu_torch.ops import build, hopper_kernels as hk
 from parelag_tpu_torch.ops.device_sparse import (
-    BcsrMatrix, EllMatrix, from_scipy)
+    BcsrMatrix, DiaMatrix, EllMatrix, from_scipy)
 
 REPS, LAUNCHES, N_RHS = 3, 20, 16
 MIXED_NOTE = "torch's CSR product takes one dtype for the matrix and x"
+# --ablate: the phase the staged multi-RHS DIA kernels leave out, as
+# csrc/dia.cu's DIA_STAGE_ABLATE
+ABLATE = {"compute": 1, "fill": 2}
+SWEEP_NOTE = ("no single PyTorch call computes a fused Jacobi sweep "
+              "x + dw * (b - A x)")
 
 #: kernel-name fragment of each hand-written kernel (csrc/*.cu)
 KERNEL_NAMES = {
-    "dia_spmv_mr_kernel": "dia_spmv_multirhs",
-    "dia_jacobi_mr_kernel": "dia_jacobi_sweep_multirhs",
+    "dia_spmv_staged_kernel": "dia_spmv_multirhs",
+    "dia_jacobi_staged_kernel": "dia_jacobi_sweep_multirhs",
     "dia_spmv_kernel": "dia_spmv",
     "dia_jacobi_kernel": "dia_jacobi_sweep",
     "bcsr_row_spmm_kernel": "bcsr_spmv_multirhs",
@@ -134,18 +151,40 @@ def _solve_row(name, fn):
 
 
 def _library_csr(M):
-    """torch.sparse_csr_tensor of a BcsrMatrix or EllMatrix on its
-    device (int64 indices, as the smoke's library operand)."""
+    """torch.sparse_csr_tensor of a BcsrMatrix, EllMatrix or DiaMatrix
+    on its device (int64 indices, as the smoke's library operand; the
+    nonzeros sorted through an f32 COO tensor, values in M's dtype)."""
     if isinstance(M, BcsrMatrix):
         return torch.sparse_csr_tensor(M.row_ptr.long(), M.col_idx.long(),
                                        M.values, M.shape)
-    assert isinstance(M, EllMatrix)
-    n, k = M.values.shape
-    keep = (M.values != 0).reshape(-1)
-    rows = torch.arange(n, device=M.values.device).repeat_interleave(k)
-    idx = torch.stack([rows[keep], M.indices.reshape(-1)[keep].long()])
-    return torch.sparse_coo_tensor(idx, M.values.reshape(-1)[keep],
-                                   M.shape).coalesce().to_sparse_csr()
+    if isinstance(M, EllMatrix):
+        n, k = M.values.shape
+        rows = torch.arange(n, device=M.values.device).repeat_interleave(k)
+        cols, vals = M.indices.reshape(-1).long(), M.values.reshape(-1)
+    else:
+        assert isinstance(M, DiaMatrix)
+        n, m = M.shape
+        i = torch.arange(n, device=M.data.device)
+        j = torch.cat([i + o for o in M.offs])
+        rows = i.repeat(len(M.offs))
+        vals = M.data[:, :n].reshape(-1)
+        inside = (j >= 0) & (j < m)
+        rows, cols, vals = rows[inside], j[inside], vals[inside]
+    keep = vals != 0
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols[keep]]), vals[keep].float(),
+        M.shape).coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                   csr.values().to(M.dtype), M.shape)
+
+
+def _plan_row(M, s, sweep=False):
+    """The staging plan of the multi-RHS DIA kernels on M with s
+    columns, as a row field."""
+    p = hk.dia_stage_plan(M.offs, s, M.dtype, sweep)
+    return dict(rows=p.rows, cols=p.cols, windows=len(p.windows),
+                window_rows=[p.rows + hi - lo for lo, hi in p.windows],
+                smem_bytes=p.smem_bytes)
 
 
 def _buffer_bytes(*modules):
@@ -181,6 +220,51 @@ def _memory_row(lane, build, dev):
     return row, out
 
 
+def _timed_row(name, variant, M, v):
+    """Device us per launch of the kernel behind fn (M @ v, or M() where
+    v is None), with the library call's device time where M is a
+    matrix."""
+    fn = M if v is None else (lambda: M @ v)
+    fn()
+    _, _, by, (seen, launched) = trace(fn, LAUNCHES)
+    us, count = by.get(name, [0.0, 0])
+    if count <= 0:
+        raise RuntimeError(f"{name}[{variant}]: no launch of the kernel "
+                           f"in the trace ({launched} counted)")
+    # per launch over the launches the trace holds
+    row = dict(kernel=name, variant=variant,
+               device_us_per_launch=us / count,
+               traced_launches=seen, launches=launched)
+    if v is None:
+        row["library_device_us"] = None
+        row["library_note"] = SWEEP_NOTE
+    elif M.dtype == v.dtype:
+        csr = _library_csr(M)
+        lib = (lambda: csr @ v)
+        lib()
+        row["library_device_us"] = trace(lib, LAUNCHES)[1]
+    else:
+        row["library_device_us"] = None
+        row["library_note"] = MIXED_NOTE
+    return row
+
+
+def _multirhs_dia_cases(H, Hb, level, X, tag):
+    """The multi-RHS DIA SpMV (f32, bf16) and bf16 sweep on one level."""
+    A, Ab = H.levels[level].A, Hb.levels[level].A
+    dw = Hb.levels[level].pre.dinv
+    Xb = X.to(torch.bfloat16)
+    return [
+        ("dia_spmv_multirhs", f"{tag} f32 s={N_RHS}", A, X,
+         _plan_row(A, N_RHS)),
+        ("dia_spmv_multirhs", f"{tag} bf16 s={N_RHS}", Ab, Xb,
+         _plan_row(Ab, N_RHS)),
+        ("dia_jacobi_sweep_multirhs", f"{tag} bf16 s={N_RHS}",
+         lambda: hk.dia_jacobi_sweep_multirhs(Ab.data, Ab.offs, Xb, Xb, dw),
+         None, _plan_row(Ab, N_RHS, sweep=True)),
+    ]
+
+
 def _kernel_rows(H, Hb, P0, Hm, dev):
     rng = np.random.RandomState(0)
     A = H.levels[0].A
@@ -188,8 +272,10 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
     n = A.shape[0]
     x = torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
     X = torch.as_tensor(rng.randn(n, N_RHS).astype(np.float32)).to(dev)
+    X1 = torch.as_tensor(rng.randn(H.levels[1].A.shape[0], N_RHS)
+                         .astype(np.float32)).to(dev)
     dw = Hb.levels[0].pre.dinv
-    xb, Xb = x.to(torch.bfloat16), X.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
     Pb, Rb = Hb.levels[0].P, Hb.levels[0].R
     nc = Pb.shape[1]
     ec = torch.as_tensor(rng.randn(nc).astype(np.float32)).to(dev)
@@ -201,18 +287,15 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
                              ).to(dev)
           for M in (hip.A_aux, hip.D, hip.Dt, E0, Am, Pm, Rm)}
     ecb, Ecb = ec.to(torch.bfloat16), Ec.to(torch.bfloat16)
-    # (kernel, variant, matrix, x): a matrix and x of one dtype also time
-    # the library's CSR product
+    # (kernel, variant, matrix, x[, plan]): a matrix and x of one dtype
+    # also time the library's CSR product
     cases = [
         ("dia_spmv", "A0 f32", A, x),
         ("dia_spmv", "A0 bf16", Ab, xb),
         ("dia_jacobi_sweep", "A0 bf16",
          lambda: hk.dia_jacobi_sweep(Ab.data, Ab.offs, xb, xb, dw), None),
-        ("dia_spmv_multirhs", f"A0 f32 s={N_RHS}", A, X),
-        ("dia_spmv_multirhs", f"A0 bf16 s={N_RHS}", Ab, Xb),
-        ("dia_jacobi_sweep_multirhs", f"A0 bf16 s={N_RHS}",
-         lambda: hk.dia_jacobi_sweep_multirhs(Ab.data, Ab.offs, Xb, Xb,
-                                              dw), None),
+        *_multirhs_dia_cases(H, Hb, 0, X, "A0"),
+        *_multirhs_dia_cases(H, Hb, 1, X1, "A1"),
         ("bcsr_spmv", "P0 bf16 values, bf16 x", Pb, ecb),
         ("bcsr_spmv", "P0 bf16 values, f32 x", Pb, ec),
         ("bcsr_spmv", "R0 bf16", Rb, xb),
@@ -222,35 +305,42 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
         ("bcsr_spmv_multirhs", f"P0 bf16 values, bf16 X s={N_RHS}", Pb,
          Ecb),
         ("bcsr_spmv_multirhs", f"P0 bf16 values, f32 X s={N_RHS}", Pb, Ec),
-        ("bcsr_spmv_multirhs", f"R0 bf16 s={N_RHS}", Rb, Xb),
+        ("bcsr_spmv_multirhs", f"R0 bf16 s={N_RHS}", Rb, X.to(torch.bfloat16)),
         ("ell_spmv", "Maxwell A_aux f32", hip.A_aux, xe[hip.A_aux]),
         ("ell_spmv", "Maxwell D0 f32", hip.D, xe[hip.D]),
         ("ell_spmv", "Maxwell D0^T f32", hip.Dt, xe[hip.Dt]),
         ("ell_spmv", "flagship P0 as ELL f32", E0, xe[E0]),
     ]
     rows = []
-    for name, variant, M, v in cases:
-        fn = M if v is None else (lambda M=M, v=v: M @ v)
-        fn()
-        _, _, by, (seen, launched) = trace(fn, LAUNCHES)
-        us, count = by.get(name, [0.0, 0])
-        if count <= 0:
-            raise RuntimeError(f"{name}[{variant}]: no launch of the kernel "
-                               f"in the trace ({launched} counted)")
-        # per launch over the launches the trace holds
-        row = dict(kernel=name, variant=variant,
-                   device_us_per_launch=us / count,
-                   traced_launches=seen, launches=launched)
-        if isinstance(M, (BcsrMatrix, EllMatrix)):
-            row["library_device_us"] = None
-            if M.dtype == v.dtype:
-                csr = _library_csr(M)
-                lib = (lambda csr=csr, v=v: csr @ v)
-                lib()
-                row["library_device_us"] = trace(lib, LAUNCHES)[1]
-            else:
-                row["library_note"] = MIXED_NOTE
-        rows.append(row)
+    for name, variant, M, v, *plan in cases:
+        rows.append(_timed_row(name, variant, M, v))
+        if plan:
+            rows[-1]["plan"] = plan[0]
+    return rows
+
+
+def _tune_rows(H, Hb, dev, tiles):
+    """The level-0 multi-RHS DIA variants with the plan's row tile forced
+    to each R in tiles; the plan cache and settings are restored
+    after."""
+    X = torch.as_tensor(np.random.RandomState(1).randn(
+        H.levels[0].A.shape[0], N_RHS).astype(np.float32)).to(dev)
+    saved = dict(hk.STAGE_ROWS), hk.STAGE_TARGET_BYTES
+    rows = []
+    try:
+        hk.STAGE_TARGET_BYTES = hk.STAGE_MAX_BYTES
+        for R in tiles:
+            hk.STAGE_ROWS.update({torch.float32: R, torch.bfloat16: R})
+            hk.dia_stage_plan.cache_clear()
+            for name, variant, M, v, plan in _multirhs_dia_cases(
+                    H, Hb, 0, X, "A0"):
+                row = _timed_row(name, f"{variant} R={R}", M, v)
+                row.update(stage_rows=R, plan=plan)
+                rows.append(row)
+    finally:
+        hk.STAGE_ROWS.update(saved[0])
+        hk.STAGE_TARGET_BYTES = saved[1]
+        hk.dia_stage_plan.cache_clear()
     return rows
 
 
@@ -262,8 +352,17 @@ def main(argv=None):
                     help="also write the JSON lines to this file")
     ap.add_argument("--memory-only", action="store_true",
                     help="stop after the two builds' memory rows")
+    ap.add_argument("--tune-rows", default=None,
+                    help="comma-separated row tiles R to time the level-0 "
+                    "multi-RHS DIA variants at")
+    ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
+                    help="time the level-0 multi-RHS DIA variants with "
+                    "one phase of the staged kernels left out")
     args = ap.parse_args(argv)
     dev = pick_device()
+    if args.ablate:
+        # a build of its own: the flags are part of the library's hash
+        build.NVCC_FLAGS += (f"-DDIA_STAGE_ABLATE={ABLATE[args.ablate]}",)
 
     def build_h1():
         A_levels, P_levels, b = flagship.build_h1_structured(args.nx,
@@ -286,6 +385,16 @@ def main(argv=None):
         _emit(rows, args.out)
         return
     hk.load()
+    if args.ablate:
+        X = torch.as_tensor(np.random.RandomState(0).randn(
+            A_levels[0].shape[0], N_RHS).astype(np.float32)).to(dev)
+        for name, variant, M, v, plan in _multirhs_dia_cases(H, Hb, 0, X,
+                                                             "A0"):
+            rows.append(_timed_row(name, f"{variant} ablate={args.ablate}",
+                                   M, v))
+            rows[-1].update(plan=plan, ablate=args.ablate)
+        _emit(rows, args.out)
+        return
     bt = torch.as_tensor(b.astype(np.float32)).to(dev)
     B = torch.as_tensor(np.random.RandomState(0).randn(
         A_levels[0].shape[0], N_RHS).astype(np.float32)).to(dev)
@@ -299,6 +408,9 @@ def main(argv=None):
                    lambda: maxwell_lane.solve(Hm, bmt)),
     ]
     rows += _kernel_rows(H, Hb, P_levels[0], Hm, dev)
+    if args.tune_rows:
+        rows += _tune_rows(H, Hb, dev,
+                           [int(r) for r in args.tune_rows.split(",")])
     _emit(rows, args.out)
 
 

@@ -125,9 +125,10 @@ def load():
         "dia_spmv_launch": [i32, vp, vp, vp, ip, i32, i64, i32, i32, vp],
         "dia_jacobi_sweep_launch": [i32, vp, vp, vp, vp, vp, ip, i32, i64,
                                     i32, vp],
-        "dia_spmv_multirhs_launch": [i32, vp, vp, vp, ip, i32, i64, i32,
+        # the multi-RHS DIA launchers take the plan struct by pointer
+        "dia_spmv_multirhs_launch": [i32, vp, vp, vp, vp, i32, i64, i32,
                                      i32, i32, vp],
-        "dia_jacobi_sweep_multirhs_launch": [i32, vp, vp, vp, vp, vp, ip,
+        "dia_jacobi_sweep_multirhs_launch": [i32, vp, vp, vp, vp, vp, vp,
                                              i32, i64, i32, i32, vp],
         "bcsr_spmv_launch": [i32, i32, vp, vp, vp, vp, vp, i32, i32, i32,
                              vp],

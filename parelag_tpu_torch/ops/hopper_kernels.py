@@ -10,6 +10,8 @@ in csrc/, built by ops/build.py):
   dia_spmv_multirhs          csrc/dia.cu   replaces dia_spmv_multirhs_pallas
   dia_jacobi_sweep_multirhs  csrc/dia.cu   replaces
                                            dia_jacobi_sweep_multirhs_pallas
+                                           (both: X staged in shared memory
+                                           by dia_stage_plan's windows)
   bcsr_spmv                  csrc/bcsr.cu  replaces bcsr_spmv_pallas
   bcsr_spmv_multirhs         csrc/bcsr.cu  BcsrMatrix.matvec on (m, s)
                                            (XLA in the JAX package)
@@ -27,6 +29,8 @@ multi-RHS layout) has no counterpart.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +43,17 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 DIA_MAX_OFFS = 48            # csrc/dia.cu DIA_MAX_OFFS
 MAX_RHS = 64                 # s limit of the multi-RHS kernels
                              # (DiaMatrix._MAX_RHS of the JAX module)
+# the staged multi-RHS DIA kernels (dia_stage_plan): the row tile R each
+# dtype starts from and the least R (rounded down, resp. up, to whole
+# blocks of STAGE_ROW_BLOCK 16-byte runs of the table), and the dynamic
+# shared bytes a plan aims under: two blocks, each with its 208 static
+# bytes and the 1 KB the card reserves, fit an H100 SM's 228 KB
+STAGE_ROWS = {torch.float32: 256, torch.bfloat16: 512, torch.float64: 256}
+STAGE_MIN_ROWS = 32
+STAGE_ROW_BLOCK = 3          # csrc/dia.cu kTR: rows per thread
+STAGE_RUN = 3                # csrc/dia.cu kRun: the longest run
+STAGE_TARGET_BYTES = 115_456
+STAGE_MAX_BYTES = 232_192    # csrc/dia.cu kStageMaxBytes
 
 _LIB = None
 
@@ -143,7 +158,11 @@ def _dia_args(name, data, offs, n, *ts):
     _check(name, data.is_contiguous() and all(t.is_contiguous()
                                               for t in ts),
            "tensors must be contiguous")
-    return nd, ld, (ctypes.c_int * nd)(*[int(o) for o in offs])
+    return nd, ld
+
+
+def _c_offs(offs):
+    return (ctypes.c_int * len(offs))(*[int(o) for o in offs])
 
 
 def dia_spmv(data, offs, x, n):
@@ -154,7 +173,8 @@ def dia_spmv(data, offs, x, n):
         return dia_spmv_plain(data, offs, x, n)
     name = "dia_spmv"
     _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
-    nd, ld, c_offs = _dia_args(name, data, offs, n, x)
+    nd, ld = _dia_args(name, data, offs, n, x)
+    c_offs = _c_offs(offs)
     lib = load()
     y = torch.empty(n, dtype=data.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -176,7 +196,8 @@ def dia_jacobi_sweep(data, offs, x, b, dw):
     _check(name, x.ndim == 1 and b.shape == x.shape and dw.shape == x.shape,
            f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
            f"dw{tuple(dw.shape)}")
-    nd, ld, c_offs = _dia_args(name, data, offs, n, x, b, dw)
+    nd, ld = _dia_args(name, data, offs, n, x, b, dw)
+    c_offs = _c_offs(offs)
     lib = load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -188,24 +209,178 @@ def dia_jacobi_sweep(data, offs, x, b, dw):
     return out
 
 
+class DiaStagePlan(NamedTuple):
+    """How the staged multi-RHS DIA kernels cut their work (csrc/dia.cu).
+    A block stages tiles of `rows` (R) rows and `cols` (C) columns: the
+    tile's nd table rows, each `tstride` = R + 16 bytes of elements (from
+    the 16-byte boundary at or below the row's first entry), and the
+    windows: window k holds the X rows [b + lo_k, b + R + hi_k) of the
+    tile at row b, for windows[k] = (lo_k, hi_k), from staged X row
+    base[k] on (row stride: the slice's columns).  window_of[d] is offset
+    d's window, sh[d] the staged row of X[i + offs[d]] minus i's row in
+    the tile, center the same for X[i] (the sweep; None unless asked
+    for), and smem_bytes the block's shared memory for a full slice,
+    table and windows.  period is P where the windows are equally long
+    and P apart (the planes of a grid), else 0: then the tile at b + P
+    takes windows 1..K-1 of the tile at b as its 0..K-2, and a block
+    marching up the planes stages only the new top window.  runs cuts
+    the offsets, in order, into (first d, length) runs of at most
+    STAGE_RUN whose staged rows sh are consecutive (the c = -1, 0, 1 of
+    a stencil line): a thread reads each X row of a run once."""
+    rows: int
+    cols: int
+    tstride: int
+    period: int
+    windows: tuple
+    window_of: tuple
+    base: tuple
+    sh: tuple
+    center: int
+    smem_bytes: int
+    runs: tuple
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def stage_windows(offs, rows):
+    """Merge offsets into windows (lo, hi), sorted and disjoint:
+    neighbouring offsets share a window while their gap is below `rows`
+    (then one window of rows + hi - lo rows costs less than two)."""
+    wins = []
+    for o in sorted(set(offs)):
+        if wins and o - wins[-1][1] < rows:
+            wins[-1][1] = o
+        else:
+            wins.append([o, o])
+    return tuple((lo, hi) for lo, hi in wins)
+
+
+@functools.lru_cache(maxsize=None)
+def dia_stage_plan(offs, s, dtype, sweep=False):
+    """The staging plan of the multi-RHS DIA kernels for a table with
+    offsets `offs` (a tuple) and `dtype` and an X of s columns; for the
+    sweep (sweep=True) the windows also cover offset 0, which it reads
+    for X[i].  It starts from C = s and R = STAGE_ROWS[dtype] and, while
+    table rows and windows take more than STAGE_TARGET_BYTES, doubles the
+    column slices while a row of a slice is wider than 64 bytes (so the
+    table is read once in all where a row of X fits 64 bytes), then
+    halves R down to STAGE_MIN_ROWS, then doubles the slices down to one
+    16-byte slice.  R stays a multiple of STAGE_ROW_BLOCK 16-byte runs
+    of table entries (each thread takes STAGE_ROW_BLOCK rows; a table row
+    is staged in 16-byte chunks) and C a multiple of 16 bytes where s
+    allows, so a slice keeps the kernels' 16-byte path.  Cached on its
+    arguments: one plan per shape."""
+    item = torch.empty((), dtype=dtype).element_size()
+    w16 = 16 // item
+    unit = STAGE_ROW_BLOCK * w16
+    step = w16 if s % w16 == 0 else 1
+    need = set(offs) | ({0} if sweep else set())
+    least = _ceil(STAGE_MIN_ROWS, unit) * unit
+    rows = max(least, STAGE_ROWS[dtype] // unit * unit)
+    slices, cols = 1, s
+
+    def nbytes(r, c):
+        return (sum(r + hi - lo for lo, hi in stage_windows(need, r)) * c
+                + len(offs) * (r + w16)) * item
+
+    def narrower():
+        # twice the slices, each as even as the 16-byte step allows
+        k = slices * 2
+        return k, max(min(s, w16), _ceil(_ceil(s, k), step) * step)
+
+    while nbytes(rows, cols) > STAGE_TARGET_BYTES:
+        if cols * item > 64:
+            slices, cols = narrower()
+        elif rows > least:
+            rows = max(least, rows // 2 // unit * unit)
+        elif cols > min(s, w16):
+            slices, cols = narrower()
+        else:
+            break
+    wins = stage_windows(need, rows)
+    base, acc = [], 0
+    for lo, hi in wins:
+        base.append(acc)
+        acc += rows + hi - lo
+    which = {o: k for k, (lo, hi) in enumerate(wins)
+             for o in need if lo <= o <= hi}
+    sh = tuple(base[which[o]] + o - wins[which[o]][0] for o in offs)
+    spans = {hi - lo for lo, hi in wins}
+    gaps = {wins[k + 1][0] - wins[k][0] for k in range(len(wins) - 1)}
+    period = gaps.pop() if len(spans) == 1 and len(gaps) == 1 else 0
+    runs = []
+    for d, v in enumerate(sh):
+        if runs and runs[-1][1] < STAGE_RUN and v == sh[d - 1] + 1:
+            runs[-1][1] += 1
+        else:
+            runs.append([d, 1])
+    return DiaStagePlan(
+        rows, cols, rows + w16, period, wins,
+        tuple(which[o] for o in offs), tuple(base), sh,
+        base[which[0]] - wins[which[0]][0] if sweep else None,
+        nbytes(rows, cols), tuple(map(tuple, runs)))
+
+
+class _DiaStage(ctypes.Structure):
+    """ctypes mirror of csrc/dia.cu struct DiaStage."""
+    _fields_ = [(f, ctypes.c_int) for f in ("rows", "cols", "nwin",
+                                             "sweep", "tstride", "period",
+                                             "nrun")] \
+        + [(f, ctypes.c_int * (DIA_MAX_OFFS + 1))
+           for f in ("lo", "len", "base", "sh", "wof", "run_d0", "run_len")]
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_arg(plan):
+    """The plan as the kernels take it; the sweep's X[i] rides as entry
+    nd of sh and wof."""
+    p = _DiaStage(rows=plan.rows, cols=plan.cols, nwin=len(plan.windows),
+                  sweep=plan.center is not None, tstride=plan.tstride,
+                  period=plan.period, nrun=len(plan.runs))
+    for k, (lo, hi) in enumerate(plan.windows):
+        p.lo[k], p.len[k], p.base[k] = lo, plan.rows + hi - lo, plan.base[k]
+    sh, wof = plan.sh, plan.window_of
+    if plan.center is not None:
+        k0 = next(k for k, (lo, hi) in enumerate(plan.windows)
+                  if lo <= 0 <= hi)
+        sh, wof = sh + (plan.center,), wof + (k0,)
+    for d, (v, k) in enumerate(zip(sh, wof)):
+        p.sh[d], p.wof[d] = v, k
+    for j, (d0, length) in enumerate(plan.runs):
+        p.run_d0[j], p.run_len[j] = d0, length
+    return p
+
+
+def _plan(name, data, offs, s, sweep=False):
+    plan = dia_stage_plan(tuple(int(o) for o in offs), s, data.dtype, sweep)
+    _check(name, plan.smem_bytes <= STAGE_MAX_BYTES,
+           f"staged windows of {plan.smem_bytes} bytes exceed "
+           f"{STAGE_MAX_BYTES}")
+    return plan
+
+
 def dia_spmv_multirhs(data, offs, x, n):
     """DIA SpMV of s right-hand sides at once (csrc/dia.cu on CUDA,
-    dia_spmv_plain on CPU): x (m, s) row-major, y (n, s); the table is
-    read once for all s columns.  On CUDA: 1 <= s <= 64, nd <= 48 and x
-    of the table's dtype."""
+    dia_spmv_plain on CPU): x (m, s) row-major, y (n, s); X staged in
+    shared memory by the windows of dia_stage_plan, the table read once
+    for each column slice.  On CUDA: 1 <= s <= 64, nd <= 48 and x of the
+    table's dtype."""
     if _on_cpu(data, x):
         return dia_spmv_plain(data, offs, x, n)
     name = "dia_spmv_multirhs"
     _check(name, x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS,
            f"x{tuple(x.shape)} must be (m, s) with 1 <= s <= {MAX_RHS}")
-    nd, ld, c_offs = _dia_args(name, data, offs, n, x)
+    nd, ld = _dia_args(name, data, offs, n, x)
     m, s = x.shape
+    plan = _plan(name, data, offs, s)
     lib = load()
     y = torch.empty((n, s), dtype=data.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.dia_spmv_multirhs_launch(
-            DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(y), c_offs,
-            nd, ld, n, m, s, _stream(x))
+            DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(y),
+            ctypes.byref(_stage_arg(plan)), nd, ld, n, m, s, _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return y
@@ -213,8 +388,9 @@ def dia_spmv_multirhs(data, offs, x, n):
 
 def dia_jacobi_sweep_multirhs(data, offs, x, b, dw):
     """Fused DIA Jacobi sweep of s right-hand sides (csrc/dia.cu on
-    CUDA): x, b (n, s), dw (n,) shared by the columns, all of the
-    table's dtype.  Returns a new x; the input is not overwritten."""
+    CUDA, staged as dia_spmv_multirhs): x, b (n, s), dw (n,) shared by
+    the columns, all of the table's dtype.  Returns a new x; the input is
+    not overwritten."""
     if _on_cpu(data, x, b, dw):
         return dia_jacobi_sweep_plain(data, offs, x, b, dw)
     name = "dia_jacobi_sweep_multirhs"
@@ -223,13 +399,15 @@ def dia_jacobi_sweep_multirhs(data, offs, x, b, dw):
            f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
            f"dw{tuple(dw.shape)} (need (n, s), s <= {MAX_RHS}, and (n,))")
     n, s = x.shape
-    nd, ld, c_offs = _dia_args(name, data, offs, n, x, b, dw)
+    nd, ld = _dia_args(name, data, offs, n, x, b, dw)
+    plan = _plan(name, data, offs, s, sweep=True)
     lib = load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = lib.dia_jacobi_sweep_multirhs_launch(
             DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(b), _ptr(dw),
-            _ptr(out), c_offs, nd, ld, n, s, _stream(x))
+            _ptr(out), ctypes.byref(_stage_arg(plan)), nd, ld, n, s,
+            _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return out

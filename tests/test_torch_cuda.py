@@ -124,10 +124,13 @@ def test_flagship_small_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [3, 16])
+@pytest.mark.parametrize("s", [1, 3, 16, 37, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
 def test_dia_multirhs_kernels_match_plain(card, dtype, s):
+    """s = 1, 3 and 37 stage X element by element, one column a thread;
+    16 and 64 in 16-byte runs.  s = 37 and 64 (and 16 in f64) split the
+    columns into slices."""
     n = 50_001
     D = to_dia(_stencil(n), dtype, card)
     g = torch.Generator().manual_seed(1)
@@ -148,6 +151,90 @@ def test_dia_multirhs_kernels_match_plain(card, dtype, s):
     # column q of the block product is the 1-RHS product of column q
     y1 = hk.dia_spmv(D.data, D.offs, x[:, s - 1].contiguous(), n)
     assert _rel(y[:, s - 1], y1) <= LIMIT[dtype]
+
+
+def _grid27(k):
+    """The 27-point stencil on a k^3 grid of points, random values."""
+    t = sp.diags([np.ones(k - 1), np.ones(k), np.ones(k - 1)], [-1, 0, 1])
+    A = sp.kron(sp.kron(t, t), t).tocsr()
+    A.data = np.random.RandomState(k).rand(A.nnz) + 0.5
+    return A
+
+
+def _banded_rect(n, m):
+    """n x m with offsets past both ends of X, and one at m - n."""
+    offs = sorted({-900, -30, -1, 0, 1, 30, 900, m - n})
+    A = sp.diags([1.0] * len(offs), offs, shape=(n, m)).tocsr()
+    A.data = np.random.RandomState(n).rand(A.nnz)
+    return A
+
+
+def _scattered(n, nd=48):
+    """nd offsets scattered over +-19,200 rows, at least 64 apart: one
+    window each once the plan has cut R to 32."""
+    rng = np.random.RandomState(nd)
+    offs = 64 * np.sort(rng.choice(np.arange(-300, 300), nd, replace=False))
+    return sp.diags([rng.rand(n - abs(o)) for o in offs], offs).tocsr()
+
+
+# (operator, windows of its f32 s = 16 plan): the 33^3 grid (35,937
+# rows, not a multiple of R) makes one window per z-plane; on the 65^3
+# grid (1,105 tiles) a block marches up several planes, staging only
+# each new top window into its ring of slots
+STAGED_CASES = {
+    "grid33": (lambda: _grid27(33), 3),
+    "grid65": (lambda: _grid27(65), 3),
+    "scattered48": (lambda: _scattered(50_001), 48),
+    "wide": (lambda: _banded_rect(30_001, 41_000), None),
+    "tall": (lambda: _banded_rect(41_000, 30_001), None),
+}
+
+
+def _unaligned(t):
+    """A copy of t whose storage starts 1 element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_dia_multirhs_staged_shapes(card, case, dtype):
+    """The staged kernels on a 27-point grid, 48 scattered offsets and
+    rectangular tables (m != n), each with a 16-byte aligned X and one
+    that is not; the sweep where the table is square."""
+    make, nwin = STAGED_CASES[case]
+    A = make()
+    n, m = A.shape
+    D = to_dia(A, dtype, card)
+    if nwin is not None:
+        assert len(hk.dia_stage_plan(D.offs, 16, torch.float32).windows) \
+            == nwin
+    g = torch.Generator().manual_seed(2)
+    for s in (3, 16):
+        X = torch.randn(m, s, generator=g).to(dtype).to(card)
+        for x in (X, _unaligned(X)):
+            before = hk.LAUNCHES["dia_spmv_multirhs"]
+            y = D @ x
+            torch.cuda.synchronize()
+            assert hk.LAUNCHES["dia_spmv_multirhs"] == before + 1
+            assert y.shape == (n, s)
+            assert _rel(y, hk.dia_spmv_plain(D.data, D.offs, x, n)) \
+                <= LIMIT[dtype]
+        if n != m:
+            continue
+        b = torch.randn(n, s, generator=g).to(dtype).to(card)
+        dw = torch.rand(n, generator=g).to(dtype).to(card)
+        for x in (X, _unaligned(X)):
+            before = hk.LAUNCHES["dia_jacobi_sweep_multirhs"]
+            w = hk.dia_jacobi_sweep_multirhs(D.data, D.offs, x, b, dw)
+            torch.cuda.synchronize()
+            assert hk.LAUNCHES["dia_jacobi_sweep_multirhs"] == before + 1
+            assert _rel(w, hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b,
+                                                     dw)) <= LIMIT[dtype]
 
 
 @pytest.mark.cuda
