@@ -281,7 +281,8 @@ def _bcsr_rows(rows, cases, dev, rng):
 
 def _ell_rows(rows, mats, dev, rng):
     """The ELL kernel on the Maxwell lane's matrices (f32) and on the
-    flagship's P0 as ELL (long enough to time above launch overhead)."""
+    flagship's P0 as ELL (long enough to time above launch overhead),
+    each variant with its launch plan (hopper_kernels.ell_launch_plan)."""
     for label, M in mats:
         E = from_scipy(M, dtype=np.float32, device=dev)
         n, k = E.values.shape
@@ -289,7 +290,8 @@ def _ell_rows(rows, mats, dev, rng):
         x = torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
                             ).to(dev)
         rows["ell_spmv"].append(_compare(
-            "ell_spmv", f"{label} f32 {n}x{M.shape[1]} k={k}",
+            "ell_spmv", f"{label} f32 {n}x{M.shape[1]} k={k} "
+            f"{hk.ell_launch_plan(n, k).tag()}",
             lambda: hk.ell_spmv(E.indices, E.values, x),
             lambda: hk.ell_spmv_plain(E.indices, E.values, x),
             _csr_bytes(M, 4) + _nbytes(x) + n * 4, 2 * int(M.count_nonzero()),
@@ -318,6 +320,7 @@ def kernel_phase(A0, P0, maxwell, dev):
     aux = aux_operator(A_levels[0].astype(np.float32),
                        D0[0].astype(np.float32))
     _ell_rows(rows, [("Maxwell A_aux", aux),
+                     ("Maxwell D0", D0[0]),
                      ("Maxwell D0^T", D0[0].T.tocsr()),
                      ("flagship P0", P0)], dev, rng)
     return rows

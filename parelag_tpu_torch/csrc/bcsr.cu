@@ -19,20 +19,11 @@
 // BcsrMatrix.matvec gives.  A column index outside [0, m) reads 0, as the
 // tile kernel's bounds check did.
 
-#include "common.cuh"
-
-static const int kThreads = 256;
+#include "row_spmv.cuh"
 
 // ---------------------------------------------------------------------
 // Element and 16-byte loads through the read-only path, widened to the
 // accumulator type, and the matching narrowing stores.
-
-__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ double ldg1(const double* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
-    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-    return __uint_as_float((unsigned)u << 16);
-}
 
 template <typename T, typename A>
 __device__ __forceinline__ void ldg_cols(const T* p, A (&v)[1]) {
@@ -83,16 +74,6 @@ __device__ __forceinline__ void st_cols(__nv_bfloat16* p,
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-static int log2i(int v) {
-    int l = 0;
-    while ((1 << l) < v) ++l;
-    return l;
-}
-
-static bool pow2_in(int v, int lo, int hi) {
-    return v >= lo && v <= hi && (v & (v - 1)) == 0;
-}
-
 // Rows per group, R.  The product is latency-bound before it is
 // bytes-bound when a lane's only work is one chain of dependent loads
 // (row_ptr, then col_idx and values, then x): with one row per group P0
@@ -110,26 +91,13 @@ static int rows_per_group(long long threads_at_one_row) {
     return threads_at_one_row <= kWave ? 1 : kRows;
 }
 
-// row_ptr of the R rows from r0 (rows past n are empty)
-template <int R>
-__device__ __forceinline__ void load_rows(const int* __restrict__ row_ptr,
-                                          long long r0, int n,
-                                          int (&rp)[R + 1]) {
-#pragma unroll
-    for (int i = 0; i <= R; ++i)
-        rp[i] = row_ptr[r0 + i < n ? r0 + i : n];
-}
-
 // ---------------------------------------------------------------------
-// One right-hand side: vector CSR with sub-warp groups.  A group of G
-// lanes (G a power of two from 2 to 32; the wrapper takes the one that
-// covers the mean nonzeros per row, at most 16: P0 ~3.3 -> 4, R0 ~26 ->
-// 16, which took 9.8 us against 13.3 at G = 32) owns R consecutive rows,
-// one after the other; its lanes stride over each row's nonzeros, so the
-// groups of a warp read one contiguous run of col_idx and values.  The first G nonzeros of every row are loaded
-// together (most rows have no more), the rest by a loop.  Each row's
-// partial sums meet by xor shuffles inside the group, and lane i % G
-// stores row i.  No shared memory: each byte is used once.
+// One right-hand side: vector CSR with sub-warp groups, the row-group
+// product of row_spmv.cuh with one entry a lane loaded at once (S = 1).
+// G lanes a row (G a power of two from 2 to 32; the wrapper takes the one
+// that covers the mean nonzeros per row, at most 16: P0 ~3.3 -> 4, R0 ~26
+// -> 16, which took 9.8 us against 13.3 at G = 32); most rows have no
+// more than G nonzeros.
 
 template <typename TV, typename TX, typename TY, typename A, int R>
 __global__ void __launch_bounds__(kThreads)
@@ -137,35 +105,8 @@ bcsr_row_spmv_kernel(const int* __restrict__ row_ptr,
                      const int* __restrict__ col_idx,
                      const TV* __restrict__ vals, const TX* __restrict__ x,
                      TY* __restrict__ y, int n, int m, int lg) {
-    const int G = 1 << lg;
-    const long long r0 = (((long long)blockIdx.x * kThreads + threadIdx.x)
-                          >> lg) * R;
-    const int lane = threadIdx.x & (G - 1);
-    int rp[R + 1];
-    load_rows<R>(row_ptr, r0, n, rp);   // the lanes past n still shuffle
-    int c[R];
-    A v[R], acc[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        const int j = rp[i] + lane;
-        c[i] = j < rp[i + 1] ? col_idx[j] : -1;
-        v[i] = j < rp[i + 1] ? A(widen(vals[j])) : A(0);
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-        acc[i] = (unsigned)c[i] < (unsigned)m ? v[i] * A(ldg1(x + c[i]))
-                                              : A(0);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-        for (int j = rp[i] + lane + G; j < rp[i + 1]; j += G) {
-            const int cj = col_idx[j];
-            if ((unsigned)cj < (unsigned)m)
-                acc[i] += A(widen(vals[j])) * A(ldg1(x + cj));
-        }
-        for (int o = G >> 1; o > 0; o >>= 1)
-            acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-        if (r0 + i < n && lane == (i & (G - 1))) narrow(y + r0 + i, acc[i]);
-    }
+    row_group_spmv<R, 1, A>(CsrRows{row_ptr}, col_idx, vals, x, y, n, m,
+                            lg);
 }
 
 template <typename TV, typename TX, typename TY, typename A>
@@ -267,7 +208,7 @@ bcsr_row_spmm_kernel(const int* __restrict__ row_ptr,
     const int l = threadIdx.x & (L - 1);
     const int C = s / W;                    // chunks of a row
     int rp[R + 1];
-    load_rows<R>(row_ptr, r0, n, rp);
+    load_rows<R>(CsrRows{row_ptr}, r0, n, rp);
     int c[R];
     A v[R], acc[R][NCH][W];
 #pragma unroll

@@ -4,60 +4,85 @@
 // never lowered on the TPU: Mosaic has no 1-D gather).  ELL carries the
 // Hiptmair smoother's D, D^T and auxiliary operator on the Maxwell lane.
 // Layout as the port's EllMatrix: idx (n, k) int32 and val (n, k)
-// row-major, padding entries at column 0 with value 0.  Rows are not
-// padded to a tile multiple: the grid covers n and the last block masks
-// its ragged edge.
+// row-major, padding entries at column 0 with value 0.  Sums accumulate
+// in the value dtype (f32 or f64), as the XLA einsum of ell_matvec does;
+// a column index outside [0, m) reads 0.
 //
-// Design: one thread per row walks its k entries.  A warp's k loads of
-// idx and val cover 32 * k contiguous elements, so each row's run is
-// fetched from device memory once and served from L1 for the rest of the
-// loop; the x gathers hit L2 (x of the Maxwell lane's operators is at
-// most 45,000 entries).  Bound on Hopper: device-memory bytes, idx + val
-// read once plus x and y; two flops per entry.  Sums accumulate in the
-// value dtype (f32 or f64), as the XLA einsum of ell_matvec does.
+// Bound on Hopper: device-memory bytes (idx + val once, x, y; two flops
+// per entry), but the Maxwell lane's operators are launch-sized: D0
+// 45,000 x 15,625 with k = 2, D0^T 15,625 x 45,000 with k <= 6, A_aux
+// 15,625 x 15,625 with k = 27, each a few MB that an L2 of 50 MB keeps.
+// There one thread per row, walking its k entries as a chain of dependent
+// loads, left the time to latency: A_aux launched 62 blocks of 256
+// threads on 132 SMs, each lane waiting on 27 load -> gather -> FMA steps
+// (3.77 us against a 0.92 us bound).
+//
+// Design: an ELL row is a CSR row with row_ptr[i] = i * k, so the kernel
+// is the row-group product of row_spmv.cuh (the BCSR kernel's) over
+// EllRows, one row a group.  The host plan (hopper_kernels.
+// ell_launch_plan) gives each row G lanes and each lane S slots: lane l
+// loads slots l, l + G, ..., l + (S - 1) G, all of them before it uses
+// any (the idx and val loads, then the x gathers, then the FMAs), so a
+// lane waits on one load -> gather -> FMA chain for its S entries, and a
+// warp's loads of one slot cover 32 / G whole rows of idx and val as one
+// contiguous run.  The plan takes the fewest lanes that cover k at S = 4,
+// then more while the grid would leave an SM without a block (H100 80GB
+// HBM3, 700 W, device us per launch, kernel_profile --ell-slots 1,2,4:
+// A_aux 2.21 / 2.19 / 2.00 at G x S = 16 x 2 / 16 x 2 / 8 x 4, the
+// flagship's P0 as ELL 36.4 / 24.5 / 23.1 at 8 x 1 / 4 x 2 / 2 x 4).  A
+// group takes one row, not BCSR's R = 4 rows beyond a wave of the card:
+// with no row_ptr load in the chain, the S slots keep the loads in
+// flight, and R = 4 was slower at every (G, S) tried but 8 x 1.
 
-#include "common.cuh"
+#include "row_spmv.cuh"
 
-template <typename T>
-__global__ void ell_spmv_kernel(const int* __restrict__ idx,
-                                const T* __restrict__ val,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                int n, int k, int m) {
-    using A = typename AccOf<T>::type;
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int* ir = idx + i * k;
-    const T* vr = val + i * k;
-    A acc = A(0);
-    for (int j = 0; j < k; ++j) {
-        const int c = ir[j];
-        if (c >= 0 && c < m) acc += widen(vr[j]) * widen(x[c]);
-    }
-    narrow(y + i, acc);
+template <typename T, int S>
+__global__ void __launch_bounds__(kThreads)
+ell_spmv_kernel(const int* __restrict__ idx, const T* __restrict__ val,
+                const T* __restrict__ x, T* __restrict__ y, int n, int k,
+                int m, int lg) {
+    row_group_spmv<1, S, typename AccOf<T>::type>(
+        EllRows{k}, idx, val, x, y, n, m, lg);
 }
 
-static const int kEllThreads = 256;
+template <typename T>
+static int launch(const void* idx, const void* val, const void* x, void* y,
+                  int n, int k, int m, int lanes, int slots,
+                  cudaStream_t st) {
+    const int lg = log2i(lanes);
+    const long long threads = (long long)n << lg;
+    const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+    const int* i = (const int*)idx;
+    const T *v = (const T*)val, *xs = (const T*)x;
+    T* ys = (T*)y;
+    if (slots == 1)
+        ell_spmv_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
+            i, v, xs, ys, n, k, m, lg);
+    else if (slots == 2)
+        ell_spmv_kernel<T, 2><<<blocks, kThreads, 0, st>>>(
+            i, v, xs, ys, n, k, m, lg);
+    else
+        ell_spmv_kernel<T, 4><<<blocks, kThreads, 0, st>>>(
+            i, v, xs, ys, n, k, m, lg);
+    return (int)cudaGetLastError();
+}
 
+// lanes G (a power of two, 1 to 32) and slots S (1, 2 or 4) from
+// hopper_kernels.ell_launch_plan; n * k < 2^31
 extern "C" int ell_spmv_launch(int dtype, const void* idx, const void* val,
                                const void* x, void* y, int n, int k, int m,
-                               void* stream) {
-    if (n < 0 || k < 1 || m < 0) return (int)cudaErrorInvalidValue;
+                               int lanes, int slots, void* stream) {
+    if (n < 0 || k < 1 || m < 0 || (long long)n * k >= (1LL << 31)
+        || !pow2_in(lanes, 1, 32) || !pow2_in(slots, 1, 4))
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    dim3 grid((unsigned)((n + kEllThreads - 1) / kEllThreads));
-    cudaStream_t s = (cudaStream_t)stream;
+    cudaStream_t st = (cudaStream_t)stream;
     switch (dtype) {
         case DT_F32:
-            ell_spmv_kernel<float><<<grid, kEllThreads, 0, s>>>(
-                (const int*)idx, (const float*)val, (const float*)x,
-                (float*)y, n, k, m);
-            break;
+            return launch<float>(idx, val, x, y, n, k, m, lanes, slots, st);
         case DT_F64:
-            ell_spmv_kernel<double><<<grid, kEllThreads, 0, s>>>(
-                (const int*)idx, (const double*)val, (const double*)x,
-                (double*)y, n, k, m);
-            break;
+            return launch<double>(idx, val, x, y, n, k, m, lanes, slots, st);
         default:
             return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
 }

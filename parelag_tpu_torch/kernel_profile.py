@@ -5,6 +5,7 @@
     python -m parelag_tpu_torch.kernel_profile --memory-only
     python -m parelag_tpu_torch.kernel_profile --tune-rows 128,256,512
     python -m parelag_tpu_torch.kernel_profile --ablate fill
+    python -m parelag_tpu_torch.kernel_profile --ell-slots 1,2,4
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -29,10 +30,21 @@ torch.profiler (CPU and CUDA activities):
     torch.sparse_csr_tensor product on the same matrix and x, summed
     over all device work of that call (null where the library takes no
     mixed dtypes, or computes no fused sweep); the multi-RHS DIA rows
-    carry their staging plan (hopper_kernels.dia_stage_plan);
+    carry their staging plan (hopper_kernels.dia_stage_plan), the ELL
+    rows their launch plan (hopper_kernels.ell_launch_plan).  Every
+    kernel row also has host_us_per_call, the host's time to enqueue one
+    call of the wrapper (perf_counter over HOST_CALLS back-to-back calls
+    with no synchronize inside), and library_host_us_per_call the same
+    for the library call;
+  * the launch floor: device and host microseconds of a one-element
+    torch op (add_ on one f32) under the same profiler, the least a
+    launch costs the card and the host;
   * --tune-rows R1,R2,...: the level-0 multi-RHS DIA variants again with
     the plan's row tile forced to each R (the shared-memory target
     raised to the kernels' limit, so R is not cut), one row per R;
+  * --ell-slots S1,S2,...: the ELL variants again with the plan's
+    slots a lane (hopper_kernels.ELL_SLOTS) set to each S, one row per
+    S (the lanes a row follow from it);
   * --ablate compute|fill: builds the kernels with -DDIA_STAGE_ABLATE
     (csrc/dia.cu) so the staged multi-RHS DIA kernels skip their sums
     (compute) or their copies into shared memory (fill), and times only
@@ -60,6 +72,7 @@ from parelag_tpu_torch.ops.device_sparse import (
     BcsrMatrix, DiaMatrix, EllMatrix, from_scipy)
 
 REPS, LAUNCHES, N_RHS = 3, 20, 16
+HOST_CALLS = 200            # enqueues timed for host_us_per_call
 MIXED_NOTE = "torch's CSR product takes one dtype for the matrix and x"
 # --ablate: the phase the staged multi-RHS DIA kernels leave out, as
 # csrc/dia.cu's DIA_STAGE_ABLATE
@@ -220,10 +233,24 @@ def _memory_row(lane, build, dev):
     return row, out
 
 
+def _host_us(fn):
+    """Host microseconds to enqueue one fn(): perf_counter around
+    HOST_CALLS back-to-back calls with no synchronize inside (the card
+    drains them after), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _timed_row(name, variant, M, v):
     """Device us per launch of the kernel behind fn (M @ v, or M() where
     v is None), with the library call's device time where M is a
-    matrix."""
+    matrix, and the host us to enqueue each."""
     fn = M if v is None else (lambda: M @ v)
     fn()
     _, _, by, (seen, launched) = trace(fn, LAUNCHES)
@@ -234,7 +261,8 @@ def _timed_row(name, variant, M, v):
     # per launch over the launches the trace holds
     row = dict(kernel=name, variant=variant,
                device_us_per_launch=us / count,
-               traced_launches=seen, launches=launched)
+               traced_launches=seen, launches=launched,
+               host_us_per_call=_host_us(fn))
     if v is None:
         row["library_device_us"] = None
         row["library_note"] = SWEEP_NOTE
@@ -243,10 +271,31 @@ def _timed_row(name, variant, M, v):
         lib = (lambda: csr @ v)
         lib()
         row["library_device_us"] = trace(lib, LAUNCHES)[1]
+        row["library_host_us_per_call"] = _host_us(lib)
     else:
         row["library_device_us"] = None
         row["library_note"] = MIXED_NOTE
+    if isinstance(M, EllMatrix):
+        row["plan"] = hk.ell_launch_plan(*M.values.shape)._asdict()
     return row
+
+
+def _launch_floor_row(dev):
+    """Device and host us of a one-element torch op: the least one
+    launch costs the card (device time under the profiler) and the host
+    (enqueue time)."""
+    t = torch.zeros(1, device=dev)
+    fn = (lambda: t.add_(1))
+    fn()
+    for _ in range(3):      # a trace that dropped device events is retaken
+        _, busy, by, _ = trace(fn, LAUNCHES)
+        events = round(sum(v[1] for v in by.values()) * LAUNCHES)
+        if events == LAUNCHES:
+            break
+    return dict(launch_floor="add_ on a one-element f32 tensor",
+                device_us_per_launch=busy * LAUNCHES / max(events, 1),
+                traced_launches=events, launches=LAUNCHES,
+                host_us_per_call=_host_us(fn))
 
 
 def _multirhs_dia_cases(H, Hb, level, X, tag):
@@ -280,12 +329,10 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
     nc = Pb.shape[1]
     ec = torch.as_tensor(rng.randn(nc).astype(np.float32)).to(dev)
     Ec = torch.as_tensor(rng.randn(nc, N_RHS).astype(np.float32)).to(dev)
-    hip = Hm.levels[0].pre
     Am, Pm, Rm = Hm.levels[0].A, Hm.levels[0].P, Hm.levels[0].R
-    E0 = from_scipy(P0, dtype=np.float32, device=dev)
     xe = {M: torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
                              ).to(dev)
-          for M in (hip.A_aux, hip.D, hip.Dt, E0, Am, Pm, Rm)}
+          for M in (Am, Pm, Rm)}
     ecb, Ecb = ec.to(torch.bfloat16), Ec.to(torch.bfloat16)
     # (kernel, variant, matrix, x[, plan]): a matrix and x of one dtype
     # also time the library's CSR product
@@ -306,16 +353,48 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
          Ecb),
         ("bcsr_spmv_multirhs", f"P0 bf16 values, f32 X s={N_RHS}", Pb, Ec),
         ("bcsr_spmv_multirhs", f"R0 bf16 s={N_RHS}", Rb, X.to(torch.bfloat16)),
-        ("ell_spmv", "Maxwell A_aux f32", hip.A_aux, xe[hip.A_aux]),
-        ("ell_spmv", "Maxwell D0 f32", hip.D, xe[hip.D]),
-        ("ell_spmv", "Maxwell D0^T f32", hip.Dt, xe[hip.Dt]),
-        ("ell_spmv", "flagship P0 as ELL f32", E0, xe[E0]),
+        *_ell_cases(P0, Hm, dev),
     ]
     rows = []
     for name, variant, M, v, *plan in cases:
         rows.append(_timed_row(name, variant, M, v))
         if plan:
             rows[-1]["plan"] = plan[0]
+    return rows
+
+
+def _ell_cases(P0, Hm, dev):
+    """ell_spmv on Hiptmair's level-0 ELL operators of the Maxwell
+    hierarchy and on the flagship's P0 as ELL, each with an x from a
+    fixed seed."""
+    hip = Hm.levels[0].pre
+    rng = np.random.RandomState(2)
+    mats = [("Maxwell A_aux", hip.A_aux), ("Maxwell D0", hip.D),
+            ("Maxwell D0^T", hip.Dt),
+            ("flagship P0 as ELL", from_scipy(P0, dtype=np.float32,
+                                              device=dev))]
+    return [("ell_spmv", f"{label} f32", M,
+             torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
+                             ).to(dev))
+            for label, M in mats]
+
+
+def _tune_ell(P0, Hm, dev, slots):
+    """The ELL variants with hopper_kernels.ELL_SLOTS set to each S in
+    slots; the setting and the plan cache are restored after."""
+    saved = hk.ELL_SLOTS
+    rows = []
+    try:
+        for s in slots:
+            hk.ELL_SLOTS = s
+            hk.ell_launch_plan.cache_clear()
+            for name, variant, M, v in _ell_cases(P0, Hm, dev):
+                rows.append(_timed_row(name, f"{variant} ELL_SLOTS={s}", M,
+                                       v))
+                rows[-1]["ell_slots"] = s
+    finally:
+        hk.ELL_SLOTS = saved
+        hk.ell_launch_plan.cache_clear()
     return rows
 
 
@@ -355,6 +434,9 @@ def main(argv=None):
     ap.add_argument("--tune-rows", default=None,
                     help="comma-separated row tiles R to time the level-0 "
                     "multi-RHS DIA variants at")
+    ap.add_argument("--ell-slots", default=None,
+                    help="comma-separated slots a lane to time the ELL "
+                    "variants at")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
@@ -407,7 +489,11 @@ def main(argv=None):
         _solve_row(f"maxwell {args.nx_maxwell}^3",
                    lambda: maxwell_lane.solve(Hm, bmt)),
     ]
+    rows.append(_launch_floor_row(dev))
     rows += _kernel_rows(H, Hb, P_levels[0], Hm, dev)
+    if args.ell_slots:
+        rows += _tune_ell(P_levels[0], Hm, dev,
+                          [int(s) for s in args.ell_slots.split(",")])
     if args.tune_rows:
         rows += _tune_rows(H, Hb, dev,
                            [int(r) for r in args.tune_rows.split(",")])

@@ -134,7 +134,8 @@ def load():
                              vp],
         "bcsr_spmv_multirhs_launch": [i32, i32, vp, vp, vp, vp, vp, i32,
                                       i32, i32, vp],
-        "ell_spmv_launch": [i32, vp, vp, vp, vp, i32, i32, i32, vp],
+        "ell_spmv_launch": [i32, vp, vp, vp, vp, i32, i32, i32, i32,
+                            i32, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -16,6 +16,10 @@ in csrc/, built by ops/build.py):
   bcsr_spmv_multirhs         csrc/bcsr.cu  BcsrMatrix.matvec on (m, s)
                                            (XLA in the JAX package)
   ell_spmv                   csrc/ell.cu   replaces ell_spmv_pallas
+                                           (G lanes a row from
+                                           ell_launch_plan; the row-group
+                                           code of csrc/row_spmv.cuh, as
+                                           bcsr_spmv)
 
 Each plain version takes x of shape (m,) or (m, s), as the JAX formats
 do; the multi-RHS wrappers use the same plain functions as the 1-RHS
@@ -519,6 +523,45 @@ def bcsr_spmv_multirhs(row_ptr, col_idx, values, x, n):
 # ELL SpMV
 # --------------------------------------------------------------------- #
 
+ELL_THREADS = 256            # csrc/row_spmv.cuh kThreads
+ELL_MAX_LANES = 16           # G caps as group_width's
+ELL_SLOT_CHOICES = (1, 2, 4)   # S the kernel is instantiated for
+# slots a lane aims at: G starts from the least power of two with G *
+# ELL_SLOTS >= k (kernel_profile --ell-slots times the others)
+ELL_SLOTS = 4
+ELL_MIN_BLOCKS = 132         # one block for each SM of an H100
+
+
+class EllPlan(NamedTuple):
+    """How csrc/ell.cu cuts an (n, k) ELL product: `lanes` (G) lanes a
+    row, `slots` (S) entries a lane loads before it uses any, and the
+    grid's `blocks` of ELL_THREADS threads (one row a group of lanes)."""
+    lanes: int
+    slots: int
+    blocks: int
+
+    def tag(self):
+        return f"G={self.lanes} S={self.slots} blocks={self.blocks}"
+
+
+@functools.lru_cache(maxsize=None)
+def ell_launch_plan(n, k):
+    """The launch plan of ell_spmv for n rows of k slots: G the least
+    power of two with G * ELL_SLOTS >= k, doubled while the grid would
+    have fewer than ELL_MIN_BLOCKS blocks and G < k (at most
+    ELL_MAX_LANES), and S the least of ELL_SLOT_CHOICES with G * S >= k
+    (a longer row's rest is looped).  Cached on (n, k)."""
+    lanes = 1
+    while lanes < ELL_MAX_LANES and (
+            lanes * ELL_SLOTS < k
+            or (_ceil(n * lanes, ELL_THREADS) < ELL_MIN_BLOCKS
+                and lanes < k)):
+        lanes *= 2
+    slots = next((s for s in ELL_SLOT_CHOICES if lanes * s >= k),
+                 ELL_SLOT_CHOICES[-1])
+    return EllPlan(lanes, slots, _ceil(n * lanes, ELL_THREADS))
+
+
 def ell_spmv_plain(indices, values, x):
     """y[i] = sum_k values[i, k] * x[indices[i, k]] (gather + row
     reduce, in the promoted dtype as the JAX ell_matvec); x (m,) or
@@ -531,9 +574,10 @@ def ell_spmv_plain(indices, values, x):
 
 
 def ell_spmv(indices, values, x):
-    """ELL SpMV (csrc/ell.cu on CUDA): indices (n, k) int32, values
-    (n, k), x (m,).  On CUDA x is one-dimensional and values and x are
-    both f32 or both f64; the sum accumulates in that dtype."""
+    """ELL SpMV (csrc/ell.cu on CUDA, cut by ell_launch_plan): indices
+    (n, k) int32, values (n, k), x (m,).  On CUDA x is one-dimensional,
+    values and x are both f32 or both f64 (the sum accumulates in that
+    dtype) and n * k < 2^31."""
     if _on_cpu(indices, values, x):
         return ell_spmv_plain(indices, values, x)
     name = "ell_spmv"
@@ -547,12 +591,15 @@ def ell_spmv(indices, values, x):
            "f64)")
     _check(name, all(t.is_contiguous() for t in (indices, values, x)),
            "tensors must be contiguous")
+    _check(name, n * k < 2 ** 31, f"{n} x {k} entries (need < 2^31)")
+    plan = ell_launch_plan(n, k)
     lib = load()
     y = torch.empty(n, dtype=values.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.ell_spmv_launch(DTYPE_CODES[values.dtype], _ptr(indices),
                                  _ptr(values), _ptr(x), _ptr(y), n, k,
-                                 x.shape[0], _stream(x))
+                                 x.shape[0], plan.lanes, plan.slots,
+                                 _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return y

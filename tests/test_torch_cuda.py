@@ -319,6 +319,41 @@ def test_ell_kernel_matches_plain(card, dtype):
         <= LIMIT[dtype] * np.abs(ref).max()
 
 
+def _ell_operand(n, m, k, dtype, seed):
+    """(n, k) ELL indices and values as from_scipy lays them out (row r
+    holds r % (k + 1) entries, every 7th row none, padding at column 0
+    with value 0), one entry at column m - 1, and x (m,)."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, m, (n, k)).astype(np.int32)
+    val = rng.randn(n, k)
+    fill = np.arange(n) % (k + 1)
+    fill[::7] = 0
+    pad = np.arange(k)[None, :] >= fill[:, None]
+    idx[pad], val[pad] = 0, 0
+    idx[n // 2, 0], val[n // 2, 0] = m - 1, 1.5
+    return (torch.as_tensor(idx), torch.as_tensor(val).to(dtype),
+            torch.as_tensor(rng.randn(m)).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 6, 27, 33])
+def test_ell_kernel_widths(card, k, dtype):
+    """Each width's plan (G lanes, S slots) on 10,001 rows, a ragged last
+    block, and on 300,001 rows, more threads than the card holds at
+    once."""
+    for n in (10_001, 300_001):
+        idx, val, x = (t.to(card) for t in _ell_operand(n, 3_001, k, dtype,
+                                                        seed=k))
+        before = hk.LAUNCHES["ell_spmv"]
+        y = hk.ell_spmv(idx, val, x)
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["ell_spmv"] == before + 1
+        yp = hk.ell_spmv_plain(idx, val, x)
+        assert _rel(y, yp) <= LIMIT[dtype], (n, k, hk.ell_launch_plan(n, k))
+        assert y[n // 2] != 0 and not y[(val == 0).all(1)].any()
+
+
 @pytest.mark.cuda
 def test_new_kernels_reject_what_they_do_not_take(card):
     from parelag_tpu_torch.ops.device_sparse import from_scipy
