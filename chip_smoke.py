@@ -1,11 +1,14 @@
 """Smoke run of the PyTorch/H100 port (parelag_tpu_torch) on one card.
 
     python3 chip_smoke.py       # the 96^3 flagship (1 and 16 RHS), 24^3
-                                # Maxwell
+                                # Maxwell, the generic engine, entry()
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
-   parelag_tpu_torch/csrc (one nvcc per source, in parallel).
+   parelag_tpu_torch/csrc (one nvcc per source, in parallel), and
+   whether the port's native host library (the repo's
+   native/parelag_kernels.cpp, built with g++ beside them) loaded: the
+   run fails if it did not.
 2. Main paths, each driven with every launch counter set to 0 just
    before and read just after; each kernel of a path must have run:
    a. the H1 flagship, flagship.lane_h1(96, n_rhs=16): structured AMGe
@@ -15,9 +18,17 @@
       host f64 residual, column 0 against its 1-RHS solve);
    b. the Maxwell lane, maxwell_lane.lane_maxwell(24): Hiptmair-smoothed
       2-level AMGe PCG on a curl-curl + mass H(curl) system, with the
-      f64 restart loop.
+      f64 restart loop;
+   c. the generic engine, generic_lane.lane_generic(NX_GENERIC): mesh,
+      topology chain, fine DeRhamSequenceFE and coarsen() with pass 2's
+      batched local solves on the card, the f32 AMGe hierarchy (BCSR on
+      the card) and PCG, within one iteration of the host f64 anchor on
+      the same matrices.
    Then each slice at a small size on the card and on the CPU (plain
-   versions) must agree: the flagship at 16^3, Maxwell at 6^3.
+   versions) must agree: the flagship at 16^3, Maxwell at 6^3, the
+   generic engine at 8^3 (the host backend on the CPU against the device
+   backend on the card: equal coarse dimensions, P within 5e-5, the f32
+   hierarchy's operators within 1e-5), and entry.entry() (rel 1e-5).
 3. Kernel phase: each kernel against its plain PyTorch version on the
    card at the main paths' shapes, with the max relative error and its
    limit, and the times (CUDA events, median) of the kernel, the plain
@@ -36,6 +47,7 @@ the script raises and prints no result.  It imports nothing of JAX.
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -43,8 +55,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from parelag_tpu_torch import device as pick_device, flagship, maxwell_lane
-from parelag_tpu_torch.ops import build, hopper_kernels as hk
+from parelag_tpu_torch import (
+    device as pick_device, entry, flagship, generic_lane, maxwell_lane)
+from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
+from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
 from parelag_tpu_torch.ops.device_sparse import (
     from_scipy, l1_row_weights, to_bcsr, to_dia)
 from parelag_tpu_torch.solvers.smoothers import aux_operator
@@ -55,6 +69,7 @@ REL_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 NX = 96                 # the flagship grid: 96^3 cells, 97^3 dofs
 N_RHS = 16              # right-hand sides of the block solve (bench.py)
 NX_MAXWELL = 24         # bench.py's Maxwell size: 45,000 edge dofs
+NX_GENERIC = 64         # bench.py's setup lane size: 274,625 H1 dofs
 ITER_SLACK = 2          # PCG iterations vs the host f64 anchor
 BATCHES, PER_BATCH = 5, 20   # timed batches of back-to-back launches
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
@@ -299,12 +314,15 @@ def _ell_rows(rows, mats, dev, rng):
         del E, csr
 
 
-def kernel_phase(A0, P0, maxwell, dev):
+def kernel_phase(A0, P0, maxwell, generic, dev):
     """Each kernel against its plain version at the main paths' shapes,
     on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
     the lane's hierarchy holds them, and Hiptmair's level-0 ELL
-    matrices."""
+    matrices.  generic: the generic lane's (A_levels, P_levels): f32
+    BCSR on its A0, its widest coarse A and P0 / R0
+    (generic_lane.bcsr_shapes), whose uneven rows reach the kernel's
+    tail handling, and ELL on its A0, the format the path gives it."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
@@ -315,14 +333,19 @@ def kernel_phase(A0, P0, maxwell, dev):
         ("R0", P0.T.tocsr(), bf16, (bf16,), True),
         ("Maxwell A0", A_levels[0], f32, (f32,), False),
         ("Maxwell P0", P_levels[0], f32, (f32,), False),
-        ("Maxwell R0", P_levels[0].T.tocsr(), f32, (f32,), False)],
+        ("Maxwell R0", P_levels[0].T.tocsr(), f32, (f32,), False)]
+        + [(label, M, f32, (f32,), False)
+           for label, M in generic_lane.bcsr_shapes(*generic)],
         dev, rng)
     aux = aux_operator(A_levels[0].astype(np.float32),
                        D0[0].astype(np.float32))
     _ell_rows(rows, [("Maxwell A_aux", aux),
                      ("Maxwell D0", D0[0]),
                      ("Maxwell D0^T", D0[0].T.tocsr()),
-                     ("flagship P0", P0)], dev, rng)
+                     ("flagship P0", P0),
+                     # the generic path's fine operator fails the BCSR
+                     # size rule (hierarchy.py) and runs as ELL there
+                     ("generic A0", generic[0][0])], dev, rng)
     return rows
 
 
@@ -430,6 +453,89 @@ def check_maxwell(rec, launches):
         raise SystemExit("FAIL Maxwell path: " + "; ".join(fails))
 
 
+def check_generic(rec, launches):
+    fails = []
+    if rec["ndofs"] != (NX_GENERIC + 1) ** 3:
+        fails.append(f"ndofs {rec['ndofs']}")
+    levels = generic_lane.n_levels(NX_GENERIC)
+    if rec["levels"] != levels or len(rec["dims"]) != levels:
+        fails.append(f"levels {rec['levels']}, dims {rec['dims']}")
+    if not rec["converged"]:
+        fails.append(f"PCG did not meet the r.z stop in {rec['iters']}")
+    if rec["iters"] > rec["host_iters"] + 1:
+        fails.append(f"iters {rec['iters']} > host anchor "
+                     f"{rec['host_iters']} + 1")
+    if not (np.isfinite(rec["rel_res"])
+            and rec["rel_res"] <= 10 * rec["rtol"]):
+        # the converged rule of solvers/autotune.tune_cycle: 10 * rtol
+        fails.append(f"rel_res {rec['rel_res']} > 10 * {rec['rtol']}")
+    if launches["bcsr_spmv"] <= 0 or rec["kernels"]["bcsr_spmv"] <= 0:
+        fails.append("kernel bcsr_spmv never launched on the generic path")
+    if fails:
+        raise SystemExit("FAIL generic path: " + "; ".join(fails))
+
+
+def _rel(a, b):
+    return float(abs(a - b).max() / max(abs(b).max(), 1e-300))
+
+
+def small_check_generic(dev):
+    """The generic engine at 8^3 over 3 levels: the host backend on the
+    CPU against the device backend on the card (equal coarse dimensions
+    of every level and form, P of every form within 5e-5, the contract
+    of the JAX package's tests/test_bench_pipeline.py), then the f32
+    hierarchy of each chain on its device: every level's A, P and R
+    applied to one random vector, card against CPU within 1e-5 of the
+    largest entry."""
+    n, mc = 8, 8
+    cpu = torch.device("cpu")
+    topo = generic_lane.build_topologies(n, mc)
+    sh, Ah, _, _ = generic_lane.build_h1(n, "host", cpu, mc, topo)
+    sd, Ad, _, _ = generic_lane.build_h1(n, "device", dev, mc, topo)
+    miss = generic_lane.first_dim_mismatch(sh, sd)
+    dP = max(abs(sp.csr_matrix(a.P[j]) - b.P[j]).max()
+             for a, b in zip(sh[:-1], sd[:-1]) for j in range(4))
+    print(f"small check generic 8^3: dims host "
+          f"{generic_lane.coarse_dims(sh)} device "
+          f"{generic_lane.coarse_dims(sd)}, first mismatch (level, form, "
+          f"(codim, entity)) {miss}, P max abs diff {dP:.3e} (limit 5e-5)")
+    if miss is not None or not dP < 5e-5:
+        raise SystemExit("FAIL small check generic: device backend "
+                         "disagrees with the host backend")
+    ys = []
+    for seqs, A, d in ((sh, Ah, cpu), (sd, Ad, dev)):
+        H, _, _ = build_amge_hierarchy(seqs, 0, A.astype(np.float32),
+                                       sweeps=2, dtype=np.float32, device=d)
+        out = []
+        for l in H.levels:
+            for M in (l.A, l.P, l.R):
+                if M is None:
+                    continue
+                x = torch.as_tensor(np.random.RandomState(M.shape[1]).randn(
+                    M.shape[1]).astype(np.float32)).to(d)
+                out.append((M @ x).double().cpu().numpy())
+        ys.append(out)
+    op = max(_rel(a, c) for a, c in zip(ys[1], ys[0]))
+    print(f"  f32 hierarchy operators card vs CPU: max rel diff {op:.3e} "
+          f"(limit 1e-5) over {len(ys[0])} operators")
+    if not op <= 1e-5:
+        raise SystemExit("FAIL small check generic: hierarchy operators")
+
+
+def check_entry(dev):
+    """entry.entry() on the card against the same call on the CPU."""
+    fn, args = entry.entry()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    print("entry ok:", tuple(y.shape))
+    fc, ac = entry.entry(device="cpu")
+    yc = fc(*ac).double().numpy()
+    rel = _rel(y.double().cpu().numpy(), yc)
+    print(f"  entry card vs CPU: max rel diff {rel:.3e} (limit 1e-5)")
+    if tuple(y.shape) != (125,) or not rel <= 1e-5:
+        raise SystemExit("FAIL entry: card and CPU disagree")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -445,10 +551,18 @@ def main():
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
           f" count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    # the host library's g++ build runs beside the kernels' nvcc builds
+    host_lib = threading.Thread(target=native.available)
+    host_lib.start()
     hk.load()
+    host_lib.join()
     print(f"kernel build {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_INFO['seconds']:.2f} s, built="
           f"{build.BUILD_INFO['built']}) -> {build.BUILD_INFO['path']}")
+    print(f"native: loaded={native.available()} "
+          f"({native._LIB._name if native.available() else 'not loaded'})")
+    if not native.available():
+        raise SystemExit("FAIL native: the host library did not load")
 
     # ---- main paths ----------------------------------------------------
     print("main path h1 (flagship.lane_h1, 1 and 16 RHS):")
@@ -481,21 +595,49 @@ def main():
     print("  record: " + json.dumps(mrec))
     check_maxwell(mrec, l_mx)
 
+    print(f"main path generic (generic_lane.lane_generic({NX_GENERIC}), "
+          "pass 2 on the card):")
+    (grec, (GA, GP, _)), l_gen = _path(
+        "generic", lambda: generic_lane.lane_generic(NX_GENERIC,
+                                                     ("device",), dev))
+    print("  record: " + json.dumps(grec))
+    print(f"  ndofs={grec['ndofs']} levels={grec['levels']} "
+          f"formats={grec['formats']} transfers={grec['transfers']}")
+    for l, d in enumerate(grec["dims"]):
+        print(f"  level {l} dims (forms 0-3): {d}")
+    print(f"  setup: topology_s={grec['topology_s']:.3f} fe_s="
+          f"{grec['device_fe_s']:.3f} coarsen_s="
+          f"{[round(t, 3) for t in grec['device_coarsen_s']]} ext pass2 "
+          f"solve {grec['device_timers']['coarsen: ext pass2 solve']:.3f} s"
+          f" hierarchy_s={grec['hierarchy_s']:.3f}")
+    print(f"  iters={grec['iters']} (host anchor {grec['host_iters']}) "
+          f"rel_res={grec['rel_res']:.3e} (rtol {grec['rtol']:g}) "
+          f"solve_s={grec['solve_s']:.5f} "
+          f"dof_iter_per_s={grec['dof_iter_per_s']:.4e} "
+          f"kernels={grec['kernels']}")
+    check_generic(grec, l_gen)
+
     small_check(dev)
     small_check_maxwell(dev)
+    small_check_generic(dev)
+    check_entry(dev)
 
     # ---- kernel phase ------------------------------------------------
     print("kernel phase (kernel vs plain on the card):")
-    rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), dev)
+    rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), (GA, GP),
+                        dev)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         r = rows[name]
         head = r[PRIMARY.get(name, 0)]
+        by_path = {"h1": l_h1[name], "maxwell": l_mx[name],
+                   "generic": l_gen[name]}
         kernels.append(dict(
             name=name, path=path, route="cuda", source=src,
             replaces=replaces,
-            launches=l_h1[name] + l_mx[name],
-            launches_by_path={"h1": l_h1[name], "maxwell": l_mx[name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            generic_variants=[v["variant"] for v in r
+                              if v["variant"].startswith("generic")],
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
             ms=head["ms"], plain_ms=head["plain_ms"],

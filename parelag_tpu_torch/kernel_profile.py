@@ -1,7 +1,8 @@
 """Device-time profile of the port's main paths on the card.
 
-    python -m parelag_tpu_torch.kernel_profile            # 96^3, 24^3
-    python -m parelag_tpu_torch.kernel_profile --nx 32 --nx-maxwell 8
+    python -m parelag_tpu_torch.kernel_profile       # 96^3, 24^3, 64^3
+    python -m parelag_tpu_torch.kernel_profile --nx 32 --nx-maxwell 8 \
+        --nx-generic 16
     python -m parelag_tpu_torch.kernel_profile --memory-only
     python -m parelag_tpu_torch.kernel_profile --tune-rows 128,256,512
     python -m parelag_tpu_torch.kernel_profile --ablate fill
@@ -13,18 +14,22 @@ each build its wall time, the card's peak memory during it
 (torch.cuda.max_memory_allocated after reset_peak_memory_stats) and the
 bytes of the hierarchies' buffers ({"memory": ...} rows; --memory-only
 stops there, and uses only the lanes' build functions, so it also runs
-against an older checkout of the package).  Then it traces with
+against an older checkout of the package).  Then the generic lane's
+chain and f32 hierarchy (generic_lane.build_h1 with pass 2 on the card,
+build_amge_hierarchy: a memory row too), and it traces with
 torch.profiler (CPU and CUDA activities):
 
   * solves: REPS solves each of the 1-RHS flagship PCG, the 16-RHS block
-    PCG and the Maxwell PCG, after one warm-up solve: wall time per
+    PCG, the Maxwell PCG and the generic AMGe PCG (amge_pcg_solve), after
+    one warm-up solve: wall time per
     solve (CUDA events, median, no profiler attached; wall_ms_profiled
     is the traced solves' host time), device busy time (the sum of the
     CUDA kernels', copies' and fills' device time in the trace), the
     idle share 1 - busy / wall, and device time by kernel;
   * kernels: LAUNCHES back-to-back calls of each hand-written kernel on
     the level-0 operators of those hierarchies (the main paths' largest
-    shapes), and of the multi-RHS DIA pair on level 1 too: device
+    shapes), of the multi-RHS DIA pair on level 1 too, and of bcsr_spmv
+    on the generic path's A0, widest coarse A, P0 and R0: device
     microseconds per launch; for every variant with a matrix operand
     (DIA, BCSR, ELL) also library_device_us, the device time of one
     torch.sparse_csr_tensor product on the same matrix and x, summed
@@ -51,10 +56,16 @@ torch.profiler (CPU and CUDA activities):
     their level-0 variants: the split of their time between the two
     phases.  Those builds compute wrong results.
 
+The profiler can drop device events: every trace (trace()) expects the
+events of one traced call alone times the calls, retakes a short trace
+and marks a row whose last try stayed short (short_trace,
+library_short_trace).
+
 Prints one JSON object per line: the card (nvidia-smi name and power
-limit, torch and CUDA versions), then {"solve": ...} and {"kernel": ...}
-rows; --out FILE also writes them there.  Needs a card; it imports
-nothing of JAX.
+limit, torch and CUDA versions), then {"memory": ...}, {"solve": ...}
+and {"kernel": ...} rows as they are taken; --out FILE also gets each
+row as it is printed, and a run that fails ends it with {"failed":
+traceback}.  Needs a card; it imports nothing of JAX.
 """
 
 import argparse
@@ -62,6 +73,7 @@ import json
 import os
 import subprocess
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -69,7 +81,7 @@ import torch
 from parelag_tpu_torch import device as pick_device, flagship, maxwell_lane
 from parelag_tpu_torch.ops import build, hopper_kernels as hk
 from parelag_tpu_torch.ops.device_sparse import (
-    BcsrMatrix, DiaMatrix, EllMatrix, from_scipy)
+    BcsrMatrix, DiaMatrix, EllMatrix, from_scipy, to_bcsr)
 
 REPS, LAUNCHES, N_RHS = 3, 20, 16
 HOST_CALLS = 200            # enqueues timed for host_us_per_call
@@ -99,39 +111,63 @@ def _label(name):
     return "torch: " + name[:60]
 
 
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
+
+
+def _profile(fn, reps):
+    """fn() reps times under torch.profiler: (host wall s per call,
+    {label: [device us, count]} summed over the reps)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        slot = by.setdefault(_label(e.key), [0.0, 0])
+        slot[0] += e.self_device_time_total
+        slot[1] += e.count
+    return wall, by
+
+
 def trace(fn, reps, attempts=3):
     """Run fn() reps times under torch.profiler; returns (host wall s
-    per call, device busy us per call, {label: [device us, count]},
-    (hand-kernel launches in the trace, launches the wrappers counted)).
-    The profiler has been seen to drop device events (one launch in 20,
-    or all 20 of one kernel), so a trace short of the counted launches
-    is taken again, up to `attempts` times; the last one is returned
-    with its counts, and a row built from it says so."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    per call, device busy us per call, {label: [device us, count] per
+    call}, info).  The profiler has been seen to drop device events (one
+    launch in 20, all 20 of one kernel, every event of a trace), so the
+    expected device events of the reps calls are taken from one traced
+    call alone (hand kernels, library calls and torch ops alike) times
+    reps, and never fewer than the hand-kernel launches the wrappers
+    counted; a trace short of them is taken again, up to `attempts`
+    times.  info holds traced_events, expected_events, traced_launches,
+    launches and short_trace, true when the last try is still short."""
     for _ in range(attempts):
-        torch.cuda.synchronize()
-        before = sum(hk.LAUNCHES.values())
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / reps
-        launched = sum(hk.LAUNCHES.values()) - before
-        by = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            slot = by.setdefault(_label(e.key), [0.0, 0])
-            slot[0] += e.self_device_time_total / reps
-            slot[1] += e.count / reps
-        seen = round(sum(v[1] for k, v in by.items() if k in hk.LAUNCHES)
-                     * reps)
-        if seen == launched:
+        # every call does some device work: a single-call trace without
+        # any event dropped them all
+        _, one = _profile(fn, 1)
+        per_call = sum(v[1] for v in one.values())
+        if per_call:
             break
-    busy = sum(v[0] for v in by.values())
-    return wall, busy, by, (seen, launched)
+    for _ in range(attempts):
+        before = sum(hk.LAUNCHES.values())
+        wall, by = _profile(fn, reps)
+        launched = sum(hk.LAUNCHES.values()) - before
+        events = sum(v[1] for v in by.values())
+        seen = sum(v[1] for k, v in by.items() if k in hk.LAUNCHES)
+        expected = max(per_call * reps, launched)
+        short = not events or events < expected or seen < launched
+        if not short:
+            break
+    busy = sum(v[0] for v in by.values()) / reps
+    per = {k: [v[0] / reps, v[1] / reps] for k, v in by.items()}
+    return wall, busy, per, dict(
+        traced_events=events, expected_events=expected,
+        traced_launches=seen, launches=launched, short_trace=short)
 
 
 def _wall_s(fn, reps):
@@ -152,13 +188,12 @@ def _wall_s(fn, reps):
 def _solve_row(name, fn):
     fn()                                      # warm-up
     wall = _wall_s(fn, REPS)
-    wall_prof, busy, by, (seen, launched) = trace(fn, REPS)
+    wall_prof, busy, by, info = trace(fn, REPS)
     top = sorted(by.items(), key=lambda kv: -kv[1][0])
-    # busy is short by the dropped events when seen < launched
+    # busy is short by the dropped events where short_trace is set
     return dict(solve=name, wall_ms=wall * 1e3,
                 wall_ms_profiled=wall_prof * 1e3, device_busy_ms=busy / 1e3,
-                idle_share=1.0 - busy / 1e3 / (wall * 1e3),
-                traced_launches=seen, launches=launched,
+                idle_share=1.0 - busy / 1e3 / (wall * 1e3), **info,
                 by_kernel={k: dict(device_ms=v[0] / 1e3, launches=v[1])
                            for k, v in top})
 
@@ -253,15 +288,14 @@ def _timed_row(name, variant, M, v):
     matrix, and the host us to enqueue each."""
     fn = M if v is None else (lambda: M @ v)
     fn()
-    _, _, by, (seen, launched) = trace(fn, LAUNCHES)
+    _, _, by, info = trace(fn, LAUNCHES)
     us, count = by.get(name, [0.0, 0])
     if count <= 0:
         raise RuntimeError(f"{name}[{variant}]: no launch of the kernel "
-                           f"in the trace ({launched} counted)")
+                           f"in the trace ({info['launches']} counted)")
     # per launch over the launches the trace holds
     row = dict(kernel=name, variant=variant,
-               device_us_per_launch=us / count,
-               traced_launches=seen, launches=launched,
+               device_us_per_launch=us / count, **info,
                host_us_per_call=_host_us(fn))
     if v is None:
         row["library_device_us"] = None
@@ -270,7 +304,9 @@ def _timed_row(name, variant, M, v):
         csr = _library_csr(M)
         lib = (lambda: csr @ v)
         lib()
-        row["library_device_us"] = trace(lib, LAUNCHES)[1]
+        _, lib_us, _, lib_info = trace(lib, LAUNCHES)
+        row["library_device_us"] = lib_us
+        row["library_short_trace"] = lib_info["short_trace"]
         row["library_host_us_per_call"] = _host_us(lib)
     else:
         row["library_device_us"] = None
@@ -283,18 +319,19 @@ def _timed_row(name, variant, M, v):
 def _launch_floor_row(dev):
     """Device and host us of a one-element torch op: the least one
     launch costs the card (device time under the profiler) and the host
-    (enqueue time)."""
+    (enqueue time).  A trace that lost every event has no device time
+    (null), and is marked short."""
     t = torch.zeros(1, device=dev)
     fn = (lambda: t.add_(1))
     fn()
-    for _ in range(3):      # a trace that dropped device events is retaken
-        _, busy, by, _ = trace(fn, LAUNCHES)
-        events = round(sum(v[1] for v in by.values()) * LAUNCHES)
-        if events == LAUNCHES:
-            break
+    _, busy, _, info = trace(fn, LAUNCHES)
+    events = info["traced_events"]
     return dict(launch_floor="add_ on a one-element f32 tensor",
-                device_us_per_launch=busy * LAUNCHES / max(events, 1),
-                traced_launches=events, launches=LAUNCHES,
+                device_us_per_launch=(busy * LAUNCHES / events if events
+                                      else None),
+                traced_events=events,
+                expected_events=info["expected_events"],
+                short_trace=info["short_trace"],
                 host_us_per_call=_host_us(fn))
 
 
@@ -314,7 +351,24 @@ def _multirhs_dia_cases(H, Hb, level, X, tag):
     ]
 
 
-def _kernel_rows(H, Hb, P0, Hm, dev):
+def _generic_cases(A_levels, P_levels, dev):
+    """bcsr_spmv in f32 on the generic path's shapes
+    (generic_lane.bcsr_shapes) and ell_spmv on its A0, each with an x
+    from a fixed seed."""
+    from parelag_tpu_torch import generic_lane
+    rng = np.random.RandomState(3)
+    cases = [("bcsr_spmv", f"{label} f32", to_bcsr(M, np.float32, dev), M)
+             for label, M in generic_lane.bcsr_shapes(A_levels, P_levels)]
+    # the path's A0 fails the BCSR size rule and runs as ELL
+    cases.append(("ell_spmv", "generic A0 f32",
+                  from_scipy(A_levels[0], dtype=np.float32, device=dev),
+                  A_levels[0]))
+    return [(name, variant, D, torch.as_tensor(
+        rng.randn(M.shape[1]).astype(np.float32)).to(dev))
+        for name, variant, D, M in cases]
+
+
+def _kernel_rows(H, Hb, P0, Hm, generic, dev):
     rng = np.random.RandomState(0)
     A = H.levels[0].A
     Ab = Hb.levels[0].A
@@ -354,6 +408,7 @@ def _kernel_rows(H, Hb, P0, Hm, dev):
         ("bcsr_spmv_multirhs", f"P0 bf16 values, f32 X s={N_RHS}", Pb, Ec),
         ("bcsr_spmv_multirhs", f"R0 bf16 s={N_RHS}", Rb, X.to(torch.bfloat16)),
         *_ell_cases(P0, Hm, dev),
+        *_generic_cases(*generic, dev),
     ]
     rows = []
     for name, variant, M, v, *plan in cases:
@@ -427,6 +482,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nx", type=int, default=96)
     ap.add_argument("--nx-maxwell", type=int, default=24)
+    ap.add_argument("--nx-generic", type=int, default=64)
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
     ap.add_argument("--memory-only", action="store_true",
@@ -441,6 +497,16 @@ def main(argv=None):
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
     args = ap.parse_args(argv)
+    emit = _emitter(args.out)
+    try:
+        _run(args, emit)
+    except BaseException:
+        # the rows taken so far and the failure stay in the log
+        emit(dict(failed=traceback.format_exc()))
+        raise
+
+
+def _run(args, emit):
     dev = pick_device()
     if args.ablate:
         # a build of its own: the flags are part of the library's hash
@@ -460,11 +526,11 @@ def main(argv=None):
 
     mem_h1, (A_levels, P_levels, b, H, Hb) = _memory_row(
         f"h1 {args.nx}^3", build_h1, dev)
+    emit(mem_h1)
     mem_mx, (bm, MA, MP, MD0, Hm) = _memory_row(
         f"maxwell {args.nx_maxwell}^3", build_mx, dev)
-    rows = [mem_h1, mem_mx]
+    emit(mem_mx)
     if args.memory_only:
-        _emit(rows, args.out)
         return
     hk.load()
     if args.ablate:
@@ -472,47 +538,76 @@ def main(argv=None):
             A_levels[0].shape[0], N_RHS).astype(np.float32)).to(dev)
         for name, variant, M, v, plan in _multirhs_dia_cases(H, Hb, 0, X,
                                                              "A0"):
-            rows.append(_timed_row(name, f"{variant} ablate={args.ablate}",
-                                   M, v))
-            rows[-1].update(plan=plan, ablate=args.ablate)
-        _emit(rows, args.out)
+            row = _timed_row(name, f"{variant} ablate={args.ablate}", M, v)
+            row.update(plan=plan, ablate=args.ablate)
+            emit(row)
         return
+
+    # imported here: --memory-only also runs against older checkouts
+    from parelag_tpu_torch import generic_lane
+    from parelag_tpu_torch.solvers.amge_solver import (
+        amge_pcg_solve, build_amge_hierarchy)
+
+    def build_generic():
+        seqs, A, bg, _ = generic_lane.build_h1(args.nx_generic, "device",
+                                               dev)
+        Hg, Ag, Pg = build_amge_hierarchy(
+            seqs, 0, A.astype(np.float32), sweeps=generic_lane.SWEEPS,
+            dtype=np.float32, device=dev)
+        return Ag, Pg, bg, Hg
+
+    mem_g, (Ag, Pg, bg, Hg) = _memory_row(
+        f"generic {args.nx_generic}^3", build_generic, dev)
+    emit(mem_g)
     bt = torch.as_tensor(b.astype(np.float32)).to(dev)
     B = torch.as_tensor(np.random.RandomState(0).randn(
         A_levels[0].shape[0], N_RHS).astype(np.float32)).to(dev)
     bmt = torch.as_tensor(bm.astype(np.float32)).to(dev)
-    rows += [
-        _solve_row(f"h1 {args.nx}^3 1 RHS",
-                   lambda: flagship.solve(H, Hb, bt)),
-        _solve_row(f"h1 {args.nx}^3 {N_RHS} RHS",
-                   lambda: flagship.solve(H, Hb, B)),
-        _solve_row(f"maxwell {args.nx_maxwell}^3",
-                   lambda: maxwell_lane.solve(Hm, bmt)),
-    ]
-    rows.append(_launch_floor_row(dev))
-    rows += _kernel_rows(H, Hb, P_levels[0], Hm, dev)
+    bgt = torch.as_tensor(bg.astype(np.float32)).to(dev)
+    for name, fn in [
+            (f"h1 {args.nx}^3 1 RHS", lambda: flagship.solve(H, Hb, bt)),
+            (f"h1 {args.nx}^3 {N_RHS} RHS", lambda: flagship.solve(H, Hb, B)),
+            (f"maxwell {args.nx_maxwell}^3",
+             lambda: maxwell_lane.solve(Hm, bmt)),
+            (f"generic {args.nx_generic}^3",
+             lambda: amge_pcg_solve(Hg, Hg.levels[0].A, bgt,
+                                    rtol=generic_lane.RTOL, atol=0.0,
+                                    maxiter=generic_lane.MAXITER,
+                                    device=dev))]:
+        emit(_solve_row(name, fn))
+    emit(_launch_floor_row(dev))
+    for row in _kernel_rows(H, Hb, P_levels[0], Hm, (Ag, Pg), dev):
+        emit(row)
     if args.ell_slots:
-        rows += _tune_ell(P_levels[0], Hm, dev,
-                          [int(s) for s in args.ell_slots.split(",")])
+        for row in _tune_ell(P_levels[0], Hm, dev,
+                             [int(s) for s in args.ell_slots.split(",")]):
+            emit(row)
     if args.tune_rows:
-        rows += _tune_rows(H, Hb, dev,
-                           [int(r) for r in args.tune_rows.split(",")])
-    _emit(rows, args.out)
+        for row in _tune_rows(H, Hb, dev,
+                              [int(r) for r in args.tune_rows.split(",")]):
+            emit(row)
 
 
-def _emit(rows, out):
-    """Print the card line and the rows as JSON lines (and to out)."""
+def _emitter(out):
+    """emit(row): print the row as a JSON line and append it to `out`
+    (started with the card line), so that a run that fails keeps every
+    row taken before the failure."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    lines = [json.dumps(r) for r in [dict(
-        card=smi, torch=torch.__version__, cuda=torch.version.cuda)] + rows]
-    print("\n".join(lines))
     if out:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-        with open(out, "w") as f:
-            f.write("\n".join(lines) + "\n")
+        open(out, "w").close()
+
+    def emit(row):
+        line = json.dumps(row)
+        print(line, flush=True)
+        if out:
+            with open(out, "a") as f:
+                f.write(line + "\n")
+    emit(dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda))
+    return emit
 
 
 if __name__ == "__main__":

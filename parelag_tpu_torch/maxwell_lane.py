@@ -27,7 +27,7 @@ import torch
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.amge import structured as stc
-from parelag_tpu_torch.flagship import eliminate_rowcols
+from parelag_tpu_torch.models.upscaling import eliminate_rowcols
 from parelag_tpu_torch.ops import hopper_kernels
 from parelag_tpu_torch.solvers.cg import pcg
 from parelag_tpu_torch.solvers.hierarchy import build_hierarchy, rap

@@ -401,3 +401,79 @@ def test_zero_gram_eigenvalues_on_card(card):
     ev = _eigvalsh(torch.zeros((1944, 3, 3), device=card))
     assert ev.dtype == torch.float32 and ev.is_cuda
     assert not ev.any()
+
+
+@pytest.mark.cuda
+def test_device_solve_groups_on_card(card):
+    """The 'device' backend of solve_groups on the card against the host
+    backend: regular members within 1e-10, exactly singular and all-zero
+    members finite (LU info / residual flag, host lstsq repair)."""
+    from parelag_tpu_torch.ops import batched
+    rng = np.random.RandomState(0)
+    n, k = 9, 3
+    A = rng.randn(40, n, n) + n * np.eye(n)
+    U = rng.randn(n, n - 3)
+    A[5] = U @ U.T                                 # rank n - 3
+    A[6] = 0.0                                     # all zero
+    B = rng.randn(40, n, k)
+    Xd = batched.solve_groups([A], [B], backend="device", device=card)[0]
+    Xh = batched.solve_groups([A], [B], backend="host")[0]
+    assert np.isfinite(Xd).all() and Xd.flags.c_contiguous
+    assert not Xd[6].any()
+    reg = np.setdiff1d(np.arange(40), [5, 6])
+    assert np.abs(Xd[reg] - Xh[reg]).max() <= 1e-10 * np.abs(Xh[reg]).max()
+
+
+@pytest.mark.cuda
+def test_svd_basis_on_card(card):
+    from parelag_tpu_torch.ops import batched
+    rng = np.random.RandomState(1)
+    mats = [rng.randn(7, 3) for _ in range(70)] + [np.zeros((7, 3))]
+    for (Ud, sd), (Uh, sh) in zip(
+            batched.batched_svd_basis(mats, backend="device", device=card),
+            batched.batched_svd_basis(mats, backend="host")):
+        assert np.isfinite(Ud).all() and np.abs(sd - sh).max() <= 1e-10
+
+
+def _generic_operators():
+    """A0, the widest coarse A and P0 of the generic engine's H1 chain
+    at 16^3 over 3 levels (host backend)."""
+    from parelag_tpu_torch import generic_lane
+    from parelag_tpu_torch.solvers.hierarchy import rap
+    seqs, A, _, _ = generic_lane.build_h1(16, "host", "cpu", min_coarse=8)
+    A_levels, P_levels = [A], []
+    for s in seqs[:-1]:
+        P_levels.append(s.P[0])
+        A_levels.append(rap(A_levels[-1], s.P[0]))
+    return generic_lane.bcsr_shapes(A_levels, P_levels)
+
+
+@pytest.mark.cuda
+def test_bcsr_kernel_on_generic_operators(card):
+    """bcsr_spmv on the generic path's uneven rows (P0: 1 to ~8 nonzeros,
+    coarse RAP rows long and uneven) against its plain version."""
+    for label, M in _generic_operators():
+        B = to_bcsr(M, torch.float32, device=card)
+        x = torch.as_tensor(np.random.RandomState(2).randn(M.shape[1])
+                            .astype(np.float32)).to(card)
+        before = hk.LAUNCHES["bcsr_spmv"]
+        y = B @ x
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["bcsr_spmv"] == before + 1, label
+        yp = hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values, x,
+                                M.shape[0])
+        assert _rel(y, yp) <= LIMIT[torch.float32], label
+
+
+@pytest.mark.cuda
+def test_generic_lane_and_entry_on_card(card):
+    from parelag_tpu_torch import entry, generic_lane
+    rec, _ = generic_lane.lane_generic(16, ("host", "device"), card,
+                                       min_coarse=8)
+    assert rec["dims_agree"] and rec["converged"]
+    assert rec["iters"] <= rec["host_iters"] + 1
+    assert rec["kernels"]["bcsr_spmv"] > 0, rec["kernels"]
+    fn, args = entry.entry(card)
+    y = fn(*args)
+    fc, ac = entry.entry("cpu")
+    assert _rel(y.cpu(), fc(*ac)) <= 1e-5

@@ -93,13 +93,31 @@ def _entry_points():
     """Every public entry point with a device argument, called without
     one, on tiny inputs (name -> thunk)."""
     import scipy.sparse as sp
-    from parelag_tpu_torch import convert, flagship, maxwell_lane
+    from parelag_tpu_torch import (
+        convert, entry, flagship, generic_lane, maxwell_lane)
     from parelag_tpu_torch.amge import structured
-    from parelag_tpu_torch.ops import device_sparse as ds
-    from parelag_tpu_torch.solvers import autotune, hierarchy, smoothers
+    from parelag_tpu_torch.ops import batched, device_sparse as ds
+    from parelag_tpu_torch.solvers import (
+        amge_solver, autotune, hierarchy, smoothers)
     I = sp.identity(8, format="csr")
     D = sp.csr_matrix(np.ones((8, 2)))
+    A1, B1 = np.eye(2)[None], np.ones((1, 2, 1))
     return {
+        "amge_solver.build_amge_hierarchy":
+            lambda: amge_solver.build_amge_hierarchy([], 0, I),
+        "amge_solver.build_ml_hiptmair":
+            lambda: amge_solver.build_ml_hiptmair([], 1, I),
+        "amge_solver.amge_pcg_solve":
+            lambda: amge_solver.amge_pcg_solve(None, None, np.ones(8)),
+        "batched.solve_groups": lambda: batched.solve_groups(
+            [A1], [B1], backend="device"),
+        "batched.batched_solve": lambda: batched.batched_solve(
+            [A1[0]], [B1[0]], backend="device"),
+        "batched.batched_svd_basis": lambda: batched.batched_svd_basis(
+            [np.ones((2, 1))], backend="device"),
+        "entry.entry": lambda: entry.entry(),
+        "generic_lane.build_h1": lambda: generic_lane.build_h1(2, "device"),
+        "generic_lane.lane_generic": lambda: generic_lane.lane_generic(2),
         "flagship.structured_chain":
             lambda: flagship.structured_chain(4, min_coarse=8),
         "flagship.build_h1_structured":
