@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/H100 port (parelag_tpu_torch) on one card.
 
     python3 chip_smoke.py       # the 96^3 flagship (1 and 16 RHS), 24^3
-                                # Maxwell, the generic engine, entry()
+                                # Maxwell, the generic engine, entry(),
+                                # the hybridized Darcy lanes
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
@@ -23,14 +24,32 @@
       topology chain, fine DeRhamSequenceFE and coarsen() with pass 2's
       batched local solves on the card, the f32 AMGe hierarchy (BCSR on
       the card) and PCG, within one iteration of the host f64 anchor on
-      the same matrices.
+      the same matrices;
+   d. the hybridized Darcy multiplier solve,
+      darcy_lane.lane_darcy_hybridized(NX_DARCY): SA-AMG PCG in f32 on the
+      card (DIA + COO outer operator, ELL and BCSR SA levels) inside f64
+      host refinement to a true relative residual <= 1e-6 (rtol 1e-8),
+      its SA levels equal to and its iterations at most DARCY_ITER_SLACK
+      above the same f32 branch run on the CPU (darcy_anchor);
+   e. SPE10, darcy_lane.lane_spe10(SPE10_CELLS): spectral 2-level
+      upscaling with every level's multiplier solve on the card (each
+      within rtol in host f64); the fine dofs equal the JAX package's CPU
+      run's, and every level's dofs, u_l2_rel and the fine u agree with
+      the same lane on this machine's CPU (see check_spe10);
+   f. the blocked Darcy AMGe GMRES, darcy_lane.lane_darcy_block
+      (BLOCK_NREF): f64 ELL levels, within 1e-8 of a direct solve.
    Then each slice at a small size on the card and on the CPU (plain
    versions) must agree: the flagship at 16^3, Maxwell at 6^3, the
    generic engine at 8^3 (the host backend on the CPU against the device
    backend on the card: equal coarse dimensions, P within 5e-5, the f32
-   hierarchy's operators within 1e-5), and entry.entry() (rel 1e-5).
+   hierarchy's operators within 1e-5), entry.entry() (rel 1e-5), the
+   hybridized solve at 8^3 (f32 refined on the card against f64 on the
+   CPU: x within 1e-6) and spe10_darcy at (8, 8, 4) (u_l2_rel within
+   1e-6, u within 1e-6 of its largest entry).
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card at the main paths' shapes, with the max relative error and its
+   card at the main paths' shapes (the generic, SA and block
+   hierarchies: every operator their cycles apply, in the format the
+   path gave it), with the max relative error and its
    limit, and the times (CUDA events, median) of the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (library_ms: a torch.sparse_csr_tensor product, used nowhere in
@@ -56,20 +75,37 @@ import scipy.sparse as sp
 import torch
 
 from parelag_tpu_torch import (
-    device as pick_device, entry, flagship, generic_lane, maxwell_lane)
+    darcy_lane, device as pick_device, entry, flagship, generic_lane,
+    kernel_profile, maxwell_lane)
 from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
 from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
 from parelag_tpu_torch.ops.device_sparse import (
     from_scipy, l1_row_weights, to_bcsr, to_dia)
+from parelag_tpu_torch.solvers.hierarchy import level_operators
 from parelag_tpu_torch.solvers.smoothers import aux_operator
 
 # error limits, max |kernel - plain| / max |plain|: f32 outputs differ
 # only in summation order; bf16 outputs round to 2^-8 relative
-REL_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+REL_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+             torch.float64: 1e-12}
 NX = 96                 # the flagship grid: 96^3 cells, 97^3 dofs
 N_RHS = 16              # right-hand sides of the block solve (bench.py)
 NX_MAXWELL = 24         # bench.py's Maxwell size: 45,000 edge dofs
 NX_GENERIC = 64         # bench.py's setup lane size: 274,625 H1 dofs
+NX_DARCY = 64           # darcy_hyb: 774,144 free multipliers (padded
+                        # to 2^20), the generic lane's cell count
+SPE10_CELLS = darcy_lane.SPE10_CELLS    # bench.py's generic SPE10 lane
+# the JAX package's spe10_darcy at SPE10_CELLS (spectral, first solver
+# "device"), a CPU run under numpy 2.0.2: dofs and multipliers per level
+# (the fine ones hold anywhere), u_l2_rel
+SPE10_NDOFS, SPE10_NMULT = [142035, 30392], [107385, 24027]
+SPE10_U_L2_REL = 0.11437877903714824
+# SPE10, card against the CPU: u_l2_rel, and the fine u of its largest
+# entry (the CPU's f64 one-pass solve stops on r.z at a true residual
+# near 1e-7)
+SPE10_L2_LIMIT, SPE10_U_LIMIT = 1e-8, 1e-6
+DARCY_ITER_SLACK = 3    # darcy_hyb iterations above the CPU anchor
+BLOCK_NREF = darcy_lane.BLOCK_NREF      # 16^3 cells, 4 levels
 ITER_SLACK = 2          # PCG iterations vs the host f64 anchor
 BATCHES, PER_BATCH = 5, 20   # timed batches of back-to-back launches
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
@@ -103,7 +139,7 @@ PRIMARY = {"dia_jacobi_sweep": 1, "dia_jacobi_sweep_multirhs": 1}
 ONE_RHS = ("dia_spmv", "dia_jacobi_sweep", "bcsr_spmv")
 MULTI_RHS = ("dia_spmv_multirhs", "dia_jacobi_sweep_multirhs",
              "bcsr_spmv_multirhs")
-_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_TAG = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 JACOBI_NOTE = ("no single PyTorch call computes a fused Jacobi sweep "
                "x + dw * (b - A x)")
 
@@ -295,37 +331,94 @@ def _bcsr_rows(rows, cases, dev, rng):
 
 
 def _ell_rows(rows, mats, dev, rng):
-    """The ELL kernel on the Maxwell lane's matrices (f32) and on the
+    """The ELL kernel in f32 on the Maxwell lane's matrices and on the
     flagship's P0 as ELL (long enough to time above launch overhead),
     each variant with its launch plan (hopper_kernels.ell_launch_plan)."""
+    dt = torch.float32
     for label, M in mats:
-        E = from_scipy(M, dtype=np.float32, device=dev)
+        tag = _TAG[dt]
+        E = from_scipy(M, dtype=dt, device=dev)
         n, k = E.values.shape
-        csr = _csr(M, torch.float32, dev)
-        x = torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
-                            ).to(dev)
+        csr = _csr(M, dt, dev)
+        x = torch.as_tensor(rng.randn(M.shape[1])).to(dt).to(dev)
+        item = x.element_size()
         rows["ell_spmv"].append(_compare(
-            "ell_spmv", f"{label} f32 {n}x{M.shape[1]} k={k} "
+            "ell_spmv", f"{label} {tag} {n}x{M.shape[1]} k={k} "
             f"{hk.ell_launch_plan(n, k).tag()}",
             lambda: hk.ell_spmv(E.indices, E.values, x),
             lambda: hk.ell_spmv_plain(E.indices, E.values, x),
-            _csr_bytes(M, 4) + _nbytes(x) + n * 4, 2 * int(M.count_nonzero()),
-            _nbytes(E.indices, E.values, x) + n * 4, lambda: csr @ x))
+            _csr_bytes(M, item) + _nbytes(x) + n * item,
+            2 * int(M.count_nonzero()),
+            _nbytes(E.indices, E.values, x) + n * item, lambda: csr @ x))
         del E, csr
 
 
-def kernel_phase(A0, P0, maxwell, generic, dev):
+def _darcy_dia_rows(rows, Hd, dev, rng):
+    """dia_spmv on the DIA part of the darcy path's outer operator Hd (a
+    DiaEllMatrix: f32, its offsets and rows, as the path gives them)."""
+    D = Hd.dia
+    n, nd = D.shape[0], len(D.offs)
+    csr = kernel_profile._library_csr(D)
+    nnz = int(csr.values().count_nonzero())
+    x = torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
+    rows["dia_spmv"].append(_compare(
+        "dia_spmv", f"darcy Hd DIA part f32 nd={nd} n={n} nnz={nnz}",
+        lambda: hk.dia_spmv(D.data, D.offs, x, n),
+        lambda: hk.dia_spmv_plain(D.data, D.offs, x, n),
+        nnz * 4 + 4 * nd + _nbytes(x, x), 2 * nnz, _nbytes(D.data, x, x),
+        lambda: csr @ x))
+
+
+def _op_rows(rows, path, H, dev, rng):
+    """bcsr_spmv / ell_spmv on every operator a cycle of the path's
+    hierarchy H applies (hierarchy.level_operators), each the path's own
+    tensors on the card in the format the path gave it; a format with no
+    hand kernel (TileCoo: torch ops) has no row."""
+    for label, M in level_operators(H):
+        name = kernel_profile.KERNEL_OF.get(type(M))
+        if name is None:
+            continue
+        n, m = M.shape
+        x = torch.as_tensor(rng.randn(m)).to(M.dtype).to(dev)
+        item, nnz = x.element_size(), kernel_profile._nnz(M)
+        csr = kernel_profile._library_csr(M)
+        if name == "bcsr_spmv":
+            args = (M.row_ptr, M.col_idx, M.values)
+            tag = f"group={M.group}"
+            kernel = (lambda: hk.bcsr_spmv(*args, x, n))
+            plain = (lambda: hk.bcsr_spmv_plain(*args, x, n))
+        else:
+            args = (M.indices, M.values)
+            k = M.values.shape[1]
+            tag = f"k={k} {hk.ell_launch_plan(n, k).tag()}"
+            kernel = (lambda: hk.ell_spmv(*args, x))
+            plain = (lambda: hk.ell_spmv_plain(*args, x))
+        rows[name].append(_compare(
+            name, f"{path} {label} {_TAG[M.dtype]} {n}x{m} nnz={nnz} {tag}",
+            kernel, plain, nnz * (item + 4) + (n + 1) * 4 + _nbytes(x)
+            + n * item, 2 * nnz, _nbytes(*args, x) + n * item,
+            lambda: csr @ x))
+        del csr
+
+
+def kernel_phase(A0, P0, maxwell, generic, darcy, dev):
     """Each kernel against its plain version at the main paths' shapes,
     on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
     the lane's hierarchy holds them, and Hiptmair's level-0 ELL
-    matrices.  generic: the generic lane's (A_levels, P_levels): f32
-    BCSR on its A0, its widest coarse A and P0 / R0
-    (generic_lane.bcsr_shapes), whose uneven rows reach the kernel's
-    tail handling, and ELL on its A0, the format the path gives it."""
+    matrices.  generic: the generic lane's f32 hierarchy.  darcy: (the
+    darcy_hyb path's outer DiaEllMatrix, its SA-AMG hierarchy, the block
+    lane's f64 hierarchy): dia_spmv on the DIA part.  Each hierarchy
+    gives a row for every operator its cycle applies, in the format the
+    path gave it (_op_rows): ELL on the generic A0, the SA A0, A1 and P0
+    and every block level, BCSR on the rest, whose uneven rows (~100-600
+    nonzeros on the SA coarse levels) reach the kernels' tail
+    handling."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
+    Hd, H_sa, H_block = darcy
+    _darcy_dia_rows(rows, Hd, dev, rng)
     A_levels, P_levels, D0 = maxwell
     bf16, f32 = torch.bfloat16, torch.float32
     _bcsr_rows(rows, [
@@ -333,19 +426,17 @@ def kernel_phase(A0, P0, maxwell, generic, dev):
         ("R0", P0.T.tocsr(), bf16, (bf16,), True),
         ("Maxwell A0", A_levels[0], f32, (f32,), False),
         ("Maxwell P0", P_levels[0], f32, (f32,), False),
-        ("Maxwell R0", P_levels[0].T.tocsr(), f32, (f32,), False)]
-        + [(label, M, f32, (f32,), False)
-           for label, M in generic_lane.bcsr_shapes(*generic)],
+        ("Maxwell R0", P_levels[0].T.tocsr(), f32, (f32,), False)],
         dev, rng)
     aux = aux_operator(A_levels[0].astype(np.float32),
                        D0[0].astype(np.float32))
     _ell_rows(rows, [("Maxwell A_aux", aux),
                      ("Maxwell D0", D0[0]),
                      ("Maxwell D0^T", D0[0].T.tocsr()),
-                     ("flagship P0", P0),
-                     # the generic path's fine operator fails the BCSR
-                     # size rule (hierarchy.py) and runs as ELL there
-                     ("generic A0", generic[0][0])], dev, rng)
+                     ("flagship P0", P0)], dev, rng)
+    _op_rows(rows, "generic", generic, dev, rng)
+    _op_rows(rows, "darcy SA", H_sa, dev, rng)
+    _op_rows(rows, "darcy block", H_block, dev, rng)
     return rows
 
 
@@ -522,6 +613,126 @@ def small_check_generic(dev):
         raise SystemExit("FAIL small check generic: hierarchy operators")
 
 
+def darcy_anchor(hyb, Hs, gf):
+    """The darcy_hyb path's anchor: the same refined solve on the same
+    system in the card's branch (f32 PCG inside f64 host refinement) on
+    the CPU, through the kernels' plain versions; its last_device."""
+    t0 = time.perf_counter()
+    hyb._device_solve(Hs, gf, rtol=darcy_lane.RTOL, device="cpu",
+                      dtype=np.float32)
+    ref = dict(hyb.last_device)
+    print(f"  CPU anchor (f32 branch, plain versions): {ref['iters']} iters"
+          f" / {ref['passes']} passes, rel_res {ref['rel_res']:.3e}, SA "
+          f"levels {ref['sa_level_sizes']} ({time.perf_counter() - t0:.1f}"
+          " s)")
+    return ref
+
+
+def check_darcy(rec, launches, ref):
+    """rel_res <= 1e-6 in host f64 after refinement; the SA level sizes
+    equal the CPU anchor's (host setup) and the iterations at most
+    DARCY_ITER_SLACK above its: a kernel that is wrong inside the V-cycle
+    costs iterations before it costs the residual."""
+    fails = []
+    if rec["n_mult"] != 774144 or rec["npad"] != 1 << 20:
+        fails.append(f"n_mult {rec['n_mult']} npad {rec['npad']}")
+    if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] <= 1e-6):
+        fails.append(f"rel_res {rec['rel_res']} > 1e-6 after "
+                     f"{rec['passes']} refinement passes")
+    if rec["sa_level_sizes"] != ref["sa_level_sizes"]:
+        fails.append(f"SA levels {rec['sa_level_sizes']} vs the CPU "
+                     f"anchor's {ref['sa_level_sizes']}")
+    if rec["iters"] > ref["iters"] + DARCY_ITER_SLACK:
+        fails.append(f"iters {rec['iters']} > CPU anchor {ref['iters']} + "
+                     f"{DARCY_ITER_SLACK}")
+    for k in ("dia_spmv", "bcsr_spmv", "ell_spmv"):
+        if launches[k] <= 0 or rec["kernels"][k] <= 0:
+            fails.append(f"kernel {k} never launched in the timed solve")
+    if fails:
+        raise SystemExit("FAIL darcy_hyb path: " + "; ".join(fails))
+
+
+def check_spe10(rec, out, ref, out_ref, launches):
+    """The fine level's dofs and multipliers equal the JAX package's
+    (they do not depend on the partition).  Against the port's own run
+    on this machine's CPU, whose graph partition is the card run's:
+    every level's dofs and multipliers equal, u_l2_rel within
+    SPE10_L2_LIMIT, the fine u within SPE10_U_LIMIT of its largest
+    entry.  (The partitioner's unstable np.argsort orders tied part
+    sizes by the numpy build, so the JAX run's coarse numbers hold only
+    under its numpy.)  Every level's device solve meets rtol in host
+    f64."""
+    fails = []
+    if rec["ndofs"][0] != SPE10_NDOFS[0] or \
+            rec["n_mult"][0] != SPE10_NMULT[0]:
+        fails.append(f"fine ndofs {rec['ndofs']} multipliers "
+                     f"{rec['n_mult']} vs the JAX package's")
+    if rec["ndofs"] != ref["ndofs"] or rec["n_mult"] != ref["n_mult"]:
+        fails.append(f"ndofs {rec['ndofs']} mult {rec['n_mult']} vs the "
+                     f"CPU run's {ref['ndofs']} {ref['n_mult']}")
+    dl = abs(rec["u_l2_rel"] - ref["u_l2_rel"])
+    du = (_rel(out["u"][0], out_ref["u"][0])
+          if len(out["u"][0]) == len(out_ref["u"][0]) else np.inf)
+    print(f"  ndofs {rec['ndofs']} mult {rec['n_mult']}; u_l2_rel "
+          f"{rec['u_l2_rel']:.10f}, CPU {ref['u_l2_rel']:.10f} (|diff| "
+          f"{dl:.3e}, limit {SPE10_L2_LIMIT:g}), fine |du| {du:.3e} (limit "
+          f"{SPE10_U_LIMIT:g}); JAX package on its CPU: ndofs "
+          f"{SPE10_NDOFS}, u_l2_rel {SPE10_U_L2_REL:.10f}")
+    if not dl <= SPE10_L2_LIMIT:
+        fails.append(f"u_l2_rel {rec['u_l2_rel']} vs the CPU run's "
+                     f"{ref['u_l2_rel']}")
+    if not du <= SPE10_U_LIMIT:
+        fails.append(f"fine u differs from the CPU run's by {du}")
+    if any(d is None or not d["rel_res"] <= darcy_lane.RTOL
+           for d in rec["device_solves"]):
+        fails.append("a level's device solve missing or above rtol: "
+                     f"{[d and d['rel_res'] for d in rec['device_solves']]}")
+    if launches["bcsr_spmv"] <= 0 or rec["kernels"]["bcsr_spmv"] <= 0:
+        fails.append("kernel bcsr_spmv never launched on the SPE10 path")
+    if fails:
+        raise SystemExit("FAIL spe10 path: " + "; ".join(fails))
+
+
+def check_block(rec, launches):
+    if not (rec["err_vs_direct"] < 1e-8 and launches["ell_spmv"] > 0
+            and rec["kernels"]["ell_spmv"] > 0):
+        raise SystemExit(f"FAIL darcy block path: err_vs_direct "
+                         f"{rec['err_vs_direct']}, ell_spmv launches "
+                         f"{launches['ell_spmv']}")
+
+
+def small_check_darcy(dev):
+    """The hybridized solve at 8^3 (f32 with f64 refinement on the card,
+    f64 on the CPU): both meet rtol 1e-8 in host f64 and x agrees within
+    1e-6 of its largest entry; then spe10_darcy at (8, 8, 4) (spectral,
+    the device multiplier solve on each side): equal ndofs, u_l2_rel
+    within 1e-6, the fine u within 1e-6 of its largest entry."""
+    hyb, H, g = darcy_lane.build_darcy_hyb(8)
+    xs = []
+    for d in ("cpu", dev):
+        x = hyb._device_solve(H, g, rtol=darcy_lane.RTOL, device=d)
+        xs.append((x, dict(hyb.last_device),
+                   np.linalg.norm(g - H @ x) / np.linalg.norm(g)))
+    (xc, ic, rc), (xg, ig, rg) = xs
+    dx = _rel(xg, xc)
+    print(f"small check darcy_hyb 8^3: card {ig['dtype']} {ig['iters']} "
+          f"iters / {ig['passes']} passes rel_res {rg:.3e}; cpu "
+          f"{ic['dtype']} {ic['iters']} iters rel_res {rc:.3e}; |dx| "
+          f"{dx:.3e} (limit 1e-6)")
+    if not (max(rg, rc) <= 1e-7 and rg <= darcy_lane.RTOL and dx <= 1e-6):
+        raise SystemExit("FAIL small check darcy: card and CPU disagree")
+    outs = [darcy_lane.lane_spe10((8, 8, 4), d)[1] for d in ("cpu", dev)]
+    (oc, og) = outs
+    du = _rel(og["u"][0], oc["u"][0])
+    dl = abs(og["u_l2_rel"] - oc["u_l2_rel"])
+    print(f"small check spe10 (8, 8, 4): ndofs {og['ndofs']} / "
+          f"{oc['ndofs']}, u_l2_rel card {og['u_l2_rel']:.10f} cpu "
+          f"{oc['u_l2_rel']:.10f} (limit 1e-6), |du| {du:.3e} (limit "
+          f"1e-6)")
+    if not (og["ndofs"] == oc["ndofs"] and dl <= 1e-6 and du <= 1e-6):
+        raise SystemExit("FAIL small check spe10: card and CPU disagree")
+
+
 def check_entry(dev):
     """entry.entry() on the card against the same call on the CPU."""
     fn, args = entry.entry()
@@ -540,6 +751,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
+    t_start = time.perf_counter()
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
     dev = pick_device()
     smi = subprocess.run(
@@ -597,7 +809,7 @@ def main():
 
     print(f"main path generic (generic_lane.lane_generic({NX_GENERIC}), "
           "pass 2 on the card):")
-    (grec, (GA, GP, _)), l_gen = _path(
+    (grec, (_, _, _, H_gen)), l_gen = _path(
         "generic", lambda: generic_lane.lane_generic(NX_GENERIC,
                                                      ("device",), dev))
     print("  record: " + json.dumps(grec))
@@ -617,33 +829,73 @@ def main():
           f"kernels={grec['kernels']}")
     check_generic(grec, l_gen)
 
+    print(f"main path darcy_hyb (darcy_lane.lane_darcy_hybridized("
+          f"{NX_DARCY})):")
+    (drec, (dhyb, Hs, gf, _, darcy_Hd, darcy_H)), l_dh = _path(
+        "darcy_hyb", lambda: darcy_lane.lane_darcy_hybridized(NX_DARCY,
+                                                              dev))
+    print("  record: " + json.dumps(drec))
+    print(f"  n_mult={drec['n_mult']} npad={drec['npad']} "
+          f"format={drec['format']} ({drec['dia_offsets']} DIA offsets) "
+          f"SA levels {drec['sa_level_sizes']} {drec['sa_formats']} "
+          f"transfers {drec['sa_transfers']}")
+    print(f"  setup_s={drec['setup_s']:.3f} amg_setup_s="
+          f"{drec['amg_setup_s']:.3f} iters={drec['iters']} passes="
+          f"{drec['passes']} rel_res={drec['rel_res']:.3e} solve_s="
+          f"{drec['solve_s']:.5f} value={drec['value']:.4e} "
+          f"kernels={drec['kernels']}")
+    check_darcy(drec, l_dh, darcy_anchor(dhyb, Hs, gf))
+    del dhyb, Hs, gf
+
+    print(f"main path spe10 (darcy_lane.lane_spe10({SPE10_CELLS})):")
+    (srec, sout), l_sp = _path(
+        "spe10", lambda: darcy_lane.lane_spe10(SPE10_CELLS, dev))
+    print("  record: " + json.dumps(srec))
+    t0 = time.perf_counter()
+    sref, sout_ref = darcy_lane.lane_spe10(SPE10_CELLS, "cpu")
+    print(f"  the same lane on the CPU: {time.perf_counter() - t0:.1f} s")
+    check_spe10(srec, sout, sref, sout_ref, l_sp)
+    del sout, sout_ref
+
+    print(f"main path darcy block (darcy_lane.lane_darcy_block("
+          f"{BLOCK_NREF})):")
+    (brec, (block_H, _)), l_bk = _path(
+        "darcy_block", lambda: darcy_lane.lane_darcy_block(BLOCK_NREF, dev))
+    print("  record: " + json.dumps(brec))
+    check_block(brec, l_bk)
+
     small_check(dev)
     small_check_maxwell(dev)
     small_check_generic(dev)
     check_entry(dev)
+    small_check_darcy(dev)
 
     # ---- kernel phase ------------------------------------------------
     print("kernel phase (kernel vs plain on the card):")
-    rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), (GA, GP),
-                        dev)
+    rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
+                        (darcy_Hd, darcy_H, block_H), dev)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         r = rows[name]
         head = r[PRIMARY.get(name, 0)]
         by_path = {"h1": l_h1[name], "maxwell": l_mx[name],
-                   "generic": l_gen[name]}
+                   "generic": l_gen[name], "darcy_hyb": l_dh[name],
+                   "spe10": l_sp[name], "darcy_block": l_bk[name]}
         kernels.append(dict(
             name=name, path=path, route="cuda", source=src,
             replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             generic_variants=[v["variant"] for v in r
                               if v["variant"].startswith("generic")],
+            darcy_variants=[v["variant"] for v in r
+                            if v["variant"].startswith("darcy")],
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             format_bytes=head["format_bytes"],
             library_ms=head["library_ms"], variants=r))
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

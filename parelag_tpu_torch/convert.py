@@ -13,10 +13,12 @@ import torch
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.amge.structured import StructuredLevel
 from parelag_tpu_torch.ops.device_sparse import (
-    BcsrMatrix, DiaMatrix, EllMatrix, TileCooMatrix)
+    BcsrMatrix, BlockDiagInverse, CooMatrix, DiaEllMatrix, DiaMatrix,
+    EllMatrix, TileCooMatrix)
+from parelag_tpu_torch.solvers.block import BlockSaddleSmoother
 from parelag_tpu_torch.solvers.hierarchy import Hierarchy, Level
 from parelag_tpu_torch.solvers.smoothers import (
-    HiptmairSmoother, L1JacobiSmoother)
+    BlockJacobiSmoother, HiptmairSmoother, L1JacobiSmoother)
 
 
 def _tensor(a, device):
@@ -49,6 +51,16 @@ def _matrix(M, device):
     if name == "EllMatrix":
         return EllMatrix(_tensor(M.indices, device),
                          _tensor(M.values, device), M.shape)
+    if name == "CooMatrix":
+        # the JAX padding entries (row = col = 0, value 0) add nothing
+        return CooMatrix(_tensor(M.rows, device), _tensor(M.cols, device),
+                         _tensor(M.vals, device), M.shape)
+    if name == "DiaEllMatrix":
+        return DiaEllMatrix(_matrix(M.dia, device), _matrix(M.ell, device),
+                            M.shape)
+    if name == "BlockDiagInverse":
+        return BlockDiagInverse([_tensor(T, device) for T in M.tensors],
+                                M.sizes)
     raise TypeError(f"matrix format {name} is not ported")
 
 
@@ -58,12 +70,26 @@ def _smoother(S, device):
     name = type(S).__name__
     if name == "L1JacobiSmoother":
         return L1JacobiSmoother(_tensor(S.dinv, device), S.sweeps, S.omega)
+    if name == "BlockJacobiSmoother":
+        return BlockJacobiSmoother(_matrix(S.binv, device), S.sweeps,
+                                   S.omega)
+    if name == "BlockSaddleSmoother":
+        return BlockSaddleSmoother(S.n0, _tensor(S.m_dinv, device),
+                                   _tensor(S.s_dinv, device), S.sweeps,
+                                   S.omega)
     if name == "HiptmairSmoother":
         return HiptmairSmoother(
             _smoother(S.primary, device), _smoother(S.aux, device),
             _matrix(S.D, device), _matrix(S.Dt, device),
             _matrix(S.A_aux, device))
     raise TypeError(f"smoother {name} is not ported")
+
+
+def matrix_from_numpy(M, device=None):
+    """The port's matrix for a JAX device matrix with numpy leaves
+    (DiaMatrix, BcsrMatrix, TileCooMatrix, EllMatrix, CooMatrix,
+    DiaEllMatrix, BlockDiagInverse; device=None: on the card)."""
+    return _matrix(M, resolve_device(device))
 
 
 def hierarchy_from_numpy(H, device=None) -> Hierarchy:

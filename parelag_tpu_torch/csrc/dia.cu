@@ -18,15 +18,16 @@
 // only +-((N+1)^2 + (N+1) + 1) rows.  Two flops per table entry sit far
 // below the card's compute roofline.
 //
-// The offsets travel by value in a __grid_constant__ struct (nd <= 48,
-// the DIA-format limit of solvers/hierarchy.py), so no device copy of
+// The offsets travel by value in a __grid_constant__ struct (nd <= 64,
+// the most to_dia_ell keeps for the DIA part of a DiaEllMatrix; the
+// DIA format of solvers/hierarchy.py stops at 48), so no device copy of
 // them is made.  Sums accumulate in f32 for f32 and bf16 tables (the
 // Pallas kernel accumulated in the table dtype) and in f64 for f64, and
 // are stored in the table dtype.
 
 #include "common.cuh"
 
-#define DIA_MAX_OFFS 48
+#define DIA_MAX_OFFS 64
 
 struct DiaOffs {
     int v[DIA_MAX_OFFS];
@@ -194,8 +195,9 @@ extern "C" int dia_jacobi_sweep_launch(int dtype, const void* data,
 // Shapes the 16-byte path does not take (s * sizeof(T) not a multiple
 // of 16, or an (n, s) tensor not 16-byte aligned) stage X element by
 // element and compute one column per thread.  s <= 64 (the JAX module's
-// _MAX_RHS) and nd <= 48, checked by the wrapper; the table must be
-// 16-byte aligned, as every allocation is.
+// _MAX_RHS) and nd <= DIA_STAGE_MAX_OFFS = 48 (the DIA format of
+// solvers/hierarchy.py, the only caller with s columns), checked by the
+// wrapper; the table must be 16-byte aligned, as every allocation is.
 //
 // Measurement hook (kernel_profile.py --ablate): built with
 // -DDIA_STAGE_ABLATE=1 the kernels skip the sums (the fill and the
@@ -203,7 +205,8 @@ extern "C" int dia_jacobi_sweep_launch(int dtype, const void* data,
 // into shared memory (the compute runs on what is there).  Their results
 // are then wrong; the default build has neither.
 
-#define DIA_MAX_WIN (DIA_MAX_OFFS + 1)
+#define DIA_STAGE_MAX_OFFS 48
+#define DIA_MAX_WIN (DIA_STAGE_MAX_OFFS + 1)
 
 // the plan, by value (ctypes mirror: hopper_kernels._DiaStage)
 struct DiaStage {
@@ -586,7 +589,7 @@ static int stage_width(const DiaStage& p, int nd, int s, const void* data,
                        const void* a, const void* b, const void* c) {
     const int v = 16 / (int)sizeof(T);
     if (p.rows < 1 || p.cols < 1 || p.cols > s || p.nwin < 1
-        || p.nwin > DIA_MAX_WIN || nd < 1 || nd > DIA_MAX_OFFS
+        || p.nwin > DIA_MAX_WIN || nd < 1 || nd > DIA_STAGE_MAX_OFFS
         || p.rows % v != 0 || p.rows % kTR != 0 || p.tstride != p.rows + v
         || p.period < 0
         || (reinterpret_cast<unsigned long long>(data) & 15ull) != 0)

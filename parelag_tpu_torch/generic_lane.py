@@ -114,18 +114,6 @@ def coarse_dims(seqs):
     return [[int(s.dof[j].ndofs) for j in range(s.nforms)] for s in seqs]
 
 
-def bcsr_shapes(A_levels, P_levels):
-    """The generic path's operators that bcsr_spmv runs on, as
-    (label, host matrix): A0, the widest coarse A (most nonzeros a row
-    on average: the coarse RAP rows are long and uneven), P0 and R0."""
-    w = max(range(1, len(A_levels)),
-            key=lambda l: A_levels[l].nnz / A_levels[l].shape[0])
-    return [("generic A0", A_levels[0]),
-            (f"generic A{w} (widest coarse)", A_levels[w]),
-            ("generic P0", P_levels[0]),
-            ("generic R0", P_levels[0].T.tocsr())]
-
-
 def first_dim_mismatch(seqs_a, seqs_b):
     """The first coarse-dimension mismatch of two chains, level by level
     and form by form: (level, form, (codim, entity)) with the first
@@ -153,7 +141,8 @@ def lane_generic(nx=NX, backends=("device",), device=None,
     solves (CUDA events on the card, the host clock on the CPU; the
     median is solve_s), `kernels` = the hand-kernel launches of the
     timed solves, and the host f64 anchor on the same matrices.  Returns
-    (record, (A_levels, P_levels, b)); device None: the card."""
+    (record, (A_levels, P_levels, b, H)), H the f32 hierarchy the solve
+    ran; device None: the card."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
     if on_card:
@@ -241,7 +230,7 @@ def lane_generic(nx=NX, backends=("device",), device=None,
         host_iters=ith, host_solve_s=host_dt,
         host_dof_iter_per_s=ndofs * ith / host_dt, kernels=kernels)
     out["vs_baseline"] = out["dof_iter_per_s"] / out["host_dof_iter_per_s"]
-    return out, (A_levels, P_levels, b)
+    return out, (A_levels, P_levels, b, H)
 
 
 def main(argv=None):

@@ -7,6 +7,7 @@
     python -m parelag_tpu_torch.kernel_profile --tune-rows 128,256,512
     python -m parelag_tpu_torch.kernel_profile --ablate fill
     python -m parelag_tpu_torch.kernel_profile --ell-slots 1,2,4
+    python -m parelag_tpu_torch.kernel_profile --darcy 64
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -29,7 +30,8 @@ torch.profiler (CPU and CUDA activities):
   * kernels: LAUNCHES back-to-back calls of each hand-written kernel on
     the level-0 operators of those hierarchies (the main paths' largest
     shapes), of the multi-RHS DIA pair on level 1 too, and of bcsr_spmv
-    on the generic path's A0, widest coarse A, P0 and R0: device
+    / ell_spmv on every operator of the generic path's hierarchy in the
+    format the path gives it (hierarchy.level_operators): device
     microseconds per launch; for every variant with a matrix operand
     (DIA, BCSR, ELL) also library_device_us, the device time of one
     torch.sparse_csr_tensor product on the same matrix and x, summed
@@ -56,6 +58,19 @@ torch.profiler (CPU and CUDA activities):
     their level-0 variants: the split of their time between the two
     phases.  Those builds compute wrong results.
 
+--darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
+(darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
+memory row): a solve row for the inner f32 PCG (rtol 1e-6, the first
+refinement pass) and one for the whole refined _device_solve (rtol 1e-8,
+its f64 host passes included); kernel rows for dia_spmv on the DIA part
+of the outer operator and for bcsr_spmv / ell_spmv on every SA level's
+A, P and R in the format the path gives them; op rows (device us per
+call of all the torch work of one call) for the COO remainder
+(index_add_), the facet block inverse and one V-cycle.  Every darcy row
+carries bound_us, the least time of its function on the card: bytes (the
+matrix's nonzeros with int32 indices, each vector read or written once)
+over 3.35 TB/s or operations over 67 TFLOP/s, the larger.
+
 The profiler can drop device events: every trace (trace()) expects the
 events of one traced call alone times the calls, retakes a short trace
 and marks a row whose last try stayed short (short_trace,
@@ -81,14 +96,19 @@ import torch
 from parelag_tpu_torch import device as pick_device, flagship, maxwell_lane
 from parelag_tpu_torch.ops import build, hopper_kernels as hk
 from parelag_tpu_torch.ops.device_sparse import (
-    BcsrMatrix, DiaMatrix, EllMatrix, from_scipy, to_bcsr)
+    BcsrMatrix, DiaMatrix, EllMatrix, from_scipy)
 
 REPS, LAUNCHES, N_RHS = 3, 20, 16
+# H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
+# FP32 FLOP/s outside the tensor cores, as chip_smoke.py's
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 HOST_CALLS = 200            # enqueues timed for host_us_per_call
 MIXED_NOTE = "torch's CSR product takes one dtype for the matrix and x"
 # --ablate: the phase the staged multi-RHS DIA kernels leave out, as
 # csrc/dia.cu's DIA_STAGE_ABLATE
 ABLATE = {"compute": 1, "fill": 2}
+#: the hand kernel behind the product of each format that has one
+KERNEL_OF = {BcsrMatrix: "bcsr_spmv", EllMatrix: "ell_spmv"}
 SWEEP_NOTE = ("no single PyTorch call computes a fused Jacobi sweep "
               "x + dw * (b - A x)")
 
@@ -351,24 +371,19 @@ def _multirhs_dia_cases(H, Hb, level, X, tag):
     ]
 
 
-def _generic_cases(A_levels, P_levels, dev):
-    """bcsr_spmv in f32 on the generic path's shapes
-    (generic_lane.bcsr_shapes) and ell_spmv on its A0, each with an x
-    from a fixed seed."""
-    from parelag_tpu_torch import generic_lane
+def _generic_cases(Hg, dev):
+    """bcsr_spmv / ell_spmv on every operator of the generic path's f32
+    hierarchy in the format the path gives it
+    (hierarchy.level_operators), each with an x from a fixed seed."""
+    from parelag_tpu_torch.solvers.hierarchy import level_operators
     rng = np.random.RandomState(3)
-    cases = [("bcsr_spmv", f"{label} f32", to_bcsr(M, np.float32, dev), M)
-             for label, M in generic_lane.bcsr_shapes(A_levels, P_levels)]
-    # the path's A0 fails the BCSR size rule and runs as ELL
-    cases.append(("ell_spmv", "generic A0 f32",
-                  from_scipy(A_levels[0], dtype=np.float32, device=dev),
-                  A_levels[0]))
-    return [(name, variant, D, torch.as_tensor(
-        rng.randn(M.shape[1]).astype(np.float32)).to(dev))
-        for name, variant, D, M in cases]
+    return [(KERNEL_OF[type(M)], f"generic {label} f32", M,
+             torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
+                             ).to(dev))
+            for label, M in level_operators(Hg) if type(M) in KERNEL_OF]
 
 
-def _kernel_rows(H, Hb, P0, Hm, generic, dev):
+def _kernel_rows(H, Hb, P0, Hm, Hg, dev):
     rng = np.random.RandomState(0)
     A = H.levels[0].A
     Ab = Hb.levels[0].A
@@ -408,7 +423,7 @@ def _kernel_rows(H, Hb, P0, Hm, generic, dev):
         ("bcsr_spmv_multirhs", f"P0 bf16 values, f32 X s={N_RHS}", Pb, Ec),
         ("bcsr_spmv_multirhs", f"R0 bf16 s={N_RHS}", Rb, X.to(torch.bfloat16)),
         *_ell_cases(P0, Hm, dev),
-        *_generic_cases(*generic, dev),
+        *_generic_cases(Hg, dev),
     ]
     rows = []
     for name, variant, M, v, *plan in cases:
@@ -432,6 +447,121 @@ def _ell_cases(P0, Hm, dev):
              torch.as_tensor(rng.randn(M.shape[1]).astype(np.float32)
                              ).to(dev))
             for label, M in mats]
+
+
+def _bound_us(nbytes, flops):
+    return max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS) * 1e6
+
+
+def _nnz(M):
+    """Stored nonzeros of a BcsrMatrix, EllMatrix, DiaMatrix or
+    CooMatrix (padding and explicit zeros not counted)."""
+    vals = {BcsrMatrix: "values", EllMatrix: "values",
+            DiaMatrix: "data"}.get(type(M), "vals")
+    return int((getattr(M, vals) != 0).sum())
+
+
+def _sparse_bytes(M, item=4):
+    """The least a product y = M x reads and writes: the nonzeros'
+    values with int32 column indices and row pointers (DIA: the values
+    and the offsets), x once and y once."""
+    n, m = M.shape
+    if isinstance(M, DiaMatrix):
+        return _nnz(M) * item + 4 * len(M.offs) + (n + m) * item
+    return _nnz(M) * (item + 4) + 4 * (n + 1) + (n + m) * item
+
+
+def _op_row(op, variant, fn, nbytes, flops, library=None, note=None):
+    """Device us of all the device work of one fn() (a torch op or a
+    composite), with its bound, the host us to enqueue it and the library
+    call's device time where one PyTorch call computes the same."""
+    fn()
+    _, busy, by, info = trace(fn, LAUNCHES)
+    row = dict(op=op, variant=variant, device_us_per_call=busy,
+               bound_us=_bound_us(nbytes, flops), bytes=nbytes, flops=flops,
+               **info, host_us_per_call=_host_us(fn),
+               by_kernel={k: dict(device_us=v[0], launches=v[1])
+                          for k, v in sorted(by.items(),
+                                             key=lambda kv: -kv[1][0])})
+    if library is None:
+        row.update(library_device_us=None, library_note=note)
+    else:
+        library()
+        _, lib_us, _, lib_info = trace(library, LAUNCHES)
+        row.update(library_device_us=lib_us,
+                   library_short_trace=lib_info["short_trace"])
+    return row
+
+
+def _coo_csr(C):
+    """torch.sparse_csr_tensor of a CooMatrix (duplicates summed)."""
+    csr = torch.sparse_coo_tensor(
+        torch.stack([C.rows.long(), C.cols.long()]), C.vals,
+        C.shape).coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                   csr.values(), C.shape)
+
+
+def _darcy(nx, dev, emit):
+    """The --darcy rows (see the module docstring)."""
+    from parelag_tpu_torch import darcy_lane
+    from parelag_tpu_torch.solvers.cg import pcg
+    from parelag_tpu_torch.solvers.hierarchy import level_operators
+    hk.load()
+    hyb, Hs, gf = darcy_lane.build_darcy_hyb(nx)
+    mem, (perm, Hd, Hier, npad, _, _) = _memory_row(
+        f"darcy_hyb {nx}^3", lambda: hyb._device_setup(Hs, dev), dev)
+    emit(mem)
+    n = Hs.shape[0]
+    rfull = np.zeros(npad)
+    rfull[:n] = gf
+    b = torch.as_tensor(rfull[perm].astype(np.float32)).to(dev)
+    emit(_solve_row(
+        f"darcy_hyb {nx}^3 inner f32 PCG (rtol 1e-6)",
+        lambda: pcg(Hd.matvec, b, precond=Hier.cycle, rtol=1e-6, atol=0.0,
+                    maxiter=2000)))
+    emit(_solve_row(
+        f"darcy_hyb {nx}^3 _device_solve (refined to rtol "
+        f"{darcy_lane.RTOL:g})",
+        lambda: hyb._device_solve(Hs, gf, rtol=darcy_lane.RTOL,
+                                  device=dev)))
+    rng = np.random.RandomState(4)
+
+    def vec(m):
+        return torch.as_tensor(rng.randn(m).astype(np.float32)).to(dev)
+
+    x = vec(npad)
+    D, R = Hd.dia, Hd.ell
+    row = _timed_row("dia_spmv", f"Hd DIA part f32 nd={len(D.offs)} "
+                     f"n={npad}", D, x)
+    row.update(bound_us=_bound_us(_sparse_bytes(D), 2 * _nnz(D)),
+               nnz=_nnz(D))
+    emit(row)
+    csr = _coo_csr(R)
+    emit(_op_row("coo remainder", f"Hd COO part nnz={_nnz(R)} n={npad}",
+                 lambda: R @ x, _nnz(R) * 12 + 2 * npad * 4, 2 * _nnz(R),
+                 library=lambda: csr @ x))
+    binv = Hier.levels[0].pre.binv
+    nb = sum(T.numel() * T.element_size() for T in binv.tensors)
+    emit(_op_row("block inverse", f"sizes {binv.sizes} n={npad}",
+                 lambda: binv @ x, nb + 2 * npad * 4,
+                 sum(T.numel() * 2 for T in binv.tensors),
+                 note="the op is torch's elementwise product (1 x 1 "
+                 "blocks) or einsum: no other library call"))
+    for label, M in level_operators(Hier):
+        name = KERNEL_OF.get(type(M))
+        if name is None:
+            continue
+        row = _timed_row(name, f"SA {label} f32 {M.shape[0]}x{M.shape[1]} "
+                         f"nnz={_nnz(M)}", M, vec(M.shape[1]))
+        row.update(bound_us=_bound_us(_sparse_bytes(M), 2 * _nnz(M)),
+                   nnz=_nnz(M), max_row=(
+                       int(M.row_ptr.diff().max()) if name == "bcsr_spmv"
+                       else int(M.values.shape[1])))
+        emit(row)
+    emit(_op_row("V-cycle", f"{len(Hier.levels)} levels n={npad}",
+                 lambda: Hier.cycle(x), 0, 0,
+                 note="a composite of the rows above and torch ops"))
 
 
 def _tune_ell(P0, Hm, dev, slots):
@@ -493,6 +623,9 @@ def main(argv=None):
     ap.add_argument("--ell-slots", default=None,
                     help="comma-separated slots a lane to time the ELL "
                     "variants at")
+    ap.add_argument("--darcy", type=int, default=0,
+                    help="profile only the hybridized Darcy multiplier "
+                    "solve at this grid (e.g. 64)")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
@@ -508,6 +641,9 @@ def main(argv=None):
 
 def _run(args, emit):
     dev = pick_device()
+    if args.darcy:
+        _darcy(args.darcy, dev, emit)
+        return
     if args.ablate:
         # a build of its own: the flags are part of the library's hash
         build.NVCC_FLAGS += (f"-DDIA_STAGE_ABLATE={ABLATE[args.ablate]}",)
@@ -551,12 +687,12 @@ def _run(args, emit):
     def build_generic():
         seqs, A, bg, _ = generic_lane.build_h1(args.nx_generic, "device",
                                                dev)
-        Hg, Ag, Pg = build_amge_hierarchy(
+        Hg, _, _ = build_amge_hierarchy(
             seqs, 0, A.astype(np.float32), sweeps=generic_lane.SWEEPS,
             dtype=np.float32, device=dev)
-        return Ag, Pg, bg, Hg
+        return bg, Hg
 
-    mem_g, (Ag, Pg, bg, Hg) = _memory_row(
+    mem_g, (bg, Hg) = _memory_row(
         f"generic {args.nx_generic}^3", build_generic, dev)
     emit(mem_g)
     bt = torch.as_tensor(b.astype(np.float32)).to(dev)
@@ -576,7 +712,7 @@ def _run(args, emit):
                                     device=dev))]:
         emit(_solve_row(name, fn))
     emit(_launch_floor_row(dev))
-    for row in _kernel_rows(H, Hb, P_levels[0], Hm, (Ag, Pg), dev):
+    for row in _kernel_rows(H, Hb, P_levels[0], Hm, Hg, dev):
         emit(row)
     if args.ell_slots:
         for row in _tune_ell(P_levels[0], Hm, dev,

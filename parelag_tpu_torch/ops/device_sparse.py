@@ -20,12 +20,21 @@ structure metadata (shape, offsets, padding) are plain attributes.
                  hopper_kernels.ell_spmv (the kernel for a 1-D x on the
                  card, where the JAX ell_matvec_best takes the Pallas
                  kernel wherever it lowers)
+  CooMatrix      row, column, value triples; the matvec is a gather and
+                 an index_add_ (plain torch, as XLA's scatter-add in JAX)
+  DiaEllMatrix   A = D + R: the densest diagonals as a DiaMatrix (the
+                 dia_spmv kernel), the rest as a CooMatrix
+  BlockDiagInverse  block-diagonal inverse over contiguous same-size
+                 blocks: elementwise for 1 x 1 blocks, one batched
+                 (k, s, s) einsum otherwise (plain torch, as in JAX)
 
 Every matvec takes x of shape (m,) or (m, s), as the JAX formats do.
 The DIA table is kept at its logical width n: the CUDA kernel bounds-
 checks its x reads, so the 8192-row tile padding of the TPU layout is
-not needed.  The converters (from_scipy, to_bcsr, to_tilecoo, to_dia)
-put the matrix on the card unless the caller names another device.
+not needed; nor is to_coo's padding of the nonzeros to a multiple of
+8192 (a TPU shape bucket).  The converters (from_scipy, to_bcsr,
+to_tilecoo, to_dia, to_coo, to_dia_ell) put the matrix on the card
+unless the caller names another device.
 """
 
 import numpy as np
@@ -81,6 +90,14 @@ class EllMatrix(nn.Module):
 
     def __matmul__(self, x):
         return self.matvec(x)
+
+
+def ell_matvec_T(A, x):
+    """y = A^T x of an EllMatrix (n, m) by a scatter-add of its
+    entries (restriction when only P is stored); x (n,)."""
+    contrib = (A.values * x[:, None]).reshape(-1)
+    y = torch.zeros(A.shape[1], dtype=contrib.dtype, device=x.device)
+    return y.index_add_(0, A.indices.reshape(-1).long(), contrib)
 
 
 def from_scipy(A, dtype=None, device=None) -> EllMatrix:
@@ -340,6 +357,147 @@ def to_dia(A, dtype=np.float32, device=None) -> DiaMatrix:
         offsets = np.zeros(1, dtype=np.int64)
     return DiaMatrix(_tensor(data, dtype, device),
                      tuple(int(o) for o in offsets), (n, m))
+
+
+class CooMatrix(nn.Module):
+    """COO: y = zeros.index_add_(rows, vals * x[cols]) for x (m,) or
+    (m, s), summed in the promoted dtype.  The format of the sparse
+    remainder of a DiaEllMatrix split: the gather and the scatter touch
+    2 * nnz elements where an ELL table would gather n * k."""
+
+    def __init__(self, rows, cols, vals, shape):
+        super().__init__()
+        self.register_buffer("rows", rows)
+        self.register_buffer("cols", cols)
+        self.register_buffer("vals", vals)
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    def matvec(self, x):
+        contrib = hk._rows(self.vals, x) * x[self.cols]
+        y = torch.zeros((self.shape[0],) + tuple(x.shape[1:]),
+                        dtype=contrib.dtype, device=x.device)
+        return y.index_add_(0, self.rows, contrib)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+
+def to_coo(A, dtype=np.float32, device=None) -> CooMatrix:
+    """Convert scipy sparse to device COO (its stored entries, in the
+    order scipy's COO gives them)."""
+    device = resolve_device(device)
+    A = sp.coo_matrix(A)
+    return CooMatrix(_tensor(A.row.astype(np.int32), device=device),
+                     _tensor(A.col.astype(np.int32), device=device),
+                     _tensor(A.data, dtype, device), A.shape)
+
+
+class DiaEllMatrix(nn.Module):
+    """Hybrid split A = D + R: the high-occupancy diagonals in DIA
+    (`dia`, a DiaMatrix: the dia_spmv kernel on the card) and the
+    stragglers in `ell`, a CooMatrix (the JAX package's attribute name;
+    to_dia_ell puts the remainder in COO).  The facet multiplier systems
+    of structured meshes put 95 %+ of their nonzeros on a few dozen
+    diagonals (29 at 8^3 to 32^3)."""
+
+    def __init__(self, dia, ell, shape):
+        super().__init__()
+        self.dia, self.ell = dia, ell
+        self.shape = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.dia.dtype
+
+    def matvec(self, x):
+        return self.dia @ x + self.ell @ x
+
+    def __matmul__(self, x):
+        return self.matvec(x)
+
+
+def to_dia_ell(A, dtype=np.float32, min_fill=0.05, max_diags=64,
+               device=None) -> DiaEllMatrix:
+    """Split scipy sparse A into a DiaEllMatrix: offsets filled on at
+    least `min_fill` of the rows (up to `max_diags` of them, densest
+    first; dia_spmv takes up to 64 on the card) become DIA, the rest a
+    COO remainder."""
+    device = resolve_device(device)
+    A = sp.csr_matrix(A)
+    n, m = A.shape
+    coo = A.tocoo()
+    off = coo.col.astype(np.int64) - coo.row
+    offs, cnt = np.unique(off, return_counts=True)
+    dense = offs[np.argsort(-cnt)[:max_diags]]
+    dense = np.sort(dense[np.isin(dense, offs[cnt >= min_fill * n])])
+    in_dia = np.isin(off, dense)
+    D = sp.coo_matrix((coo.data[in_dia],
+                       (coo.row[in_dia], coo.col[in_dia])), shape=(n, m))
+    R = sp.coo_matrix((coo.data[~in_dia],
+                       (coo.row[~in_dia], coo.col[~in_dia])), shape=(n, m))
+    return DiaEllMatrix(to_dia(D, dtype=dtype, device=device),
+                        to_coo(R, dtype=dtype, device=device), (n, m))
+
+
+class BlockDiagInverse(nn.Module):
+    """Block-diagonal inverse in block-contiguous ordering: bucket j
+    holds k_j blocks of size sizes[j] (a (k,) inverse diagonal for size
+    1, else (k, s, s) inverses) and covers the next k_j * s_j rows.  The
+    apply is static slices, an elementwise product for 1 x 1 blocks and
+    one batched einsum for the others; r (n,) or (n, c)."""
+
+    def __init__(self, tensors, sizes):
+        super().__init__()
+        self.sizes = tuple(int(s) for s in sizes)
+        for j, T in enumerate(tensors):
+            self.register_buffer(f"block{j}", T)
+
+    @property
+    def tensors(self):
+        return tuple(getattr(self, f"block{j}")
+                     for j in range(len(self.sizes)))
+
+    @property
+    def dtype(self):
+        return self.block0.dtype
+
+    def matvec(self, r):
+        rest = tuple(r.shape[1:])
+        outs, o = [], 0
+        for s, B in zip(self.sizes, self.tensors):
+            k = B.shape[0]
+            seg = r[o:o + k * s]
+            if s == 1:
+                outs.append(hk._rows(B, r) * seg)
+            else:
+                outs.append(torch.einsum(
+                    "kij,kj...->ki...", B, seg.reshape((k, s) + rest)
+                ).reshape((k * s,) + rest))
+            o += k * s
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def __matmul__(self, r):
+        return self.matvec(r)
+
+
+def dia_ell_fill(A, min_fill=0.05, max_diags=64):
+    """Fraction of nnz the DIA part of to_dia_ell would capture."""
+    A = sp.coo_matrix(A)
+    if A.nnz == 0:
+        return 1.0
+    n = A.shape[0]
+    off = A.col.astype(np.int64) - A.row
+    offs, cnt = np.unique(off, return_counts=True)
+    keep = cnt[np.argsort(-cnt)[:max_diags]]
+    return float(keep[keep >= min_fill * n].sum()) / A.nnz
+
+
+def diag_of(A_scipy) -> np.ndarray:
+    return sp.csr_matrix(A_scipy).diagonal()
 
 
 def dia_n_offsets(A) -> int:

@@ -44,7 +44,10 @@ LAUNCHES = {"dia_spmv": 0, "dia_jacobi_sweep": 0, "dia_spmv_multirhs": 0,
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
-DIA_MAX_OFFS = 48            # csrc/dia.cu DIA_MAX_OFFS
+DIA_MAX_OFFS = 64            # csrc/dia.cu DIA_MAX_OFFS: the 1-RHS kernels
+                             # (to_dia_ell keeps up to 64 offsets)
+DIA_STAGE_MAX_OFFS = 48      # csrc/dia.cu DIA_STAGE_MAX_OFFS: the staged
+                             # multi-RHS kernels (the DIA format's 48)
 MAX_RHS = 64                 # s limit of the multi-RHS kernels
                              # (DiaMatrix._MAX_RHS of the JAX module)
 # the staged multi-RHS DIA kernels (dia_stage_plan): the row tile R each
@@ -149,15 +152,15 @@ def dia_jacobi_sweep_plain(data, offs, x, b, dw):
             ).to(x.dtype)
 
 
-def _dia_args(name, data, offs, n, *ts):
+def _dia_args(name, data, offs, n, *ts, max_offs=DIA_MAX_OFFS):
     nd, ld = data.shape
     _check(name, data.dtype in DTYPE_CODES
            and all(t.dtype == data.dtype for t in ts),
            f"dtypes {data.dtype}/{[str(t.dtype) for t in ts]} (need "
            "equal f32, bf16 or f64)")
-    _check(name, len(offs) == nd and 1 <= nd <= DIA_MAX_OFFS,
+    _check(name, len(offs) == nd and 1 <= nd <= max_offs,
            f"{len(offs)} offsets for a table of {nd} rows (max "
-           f"{DIA_MAX_OFFS})")
+           f"{max_offs})")
     _check(name, ld >= n, f"table width {ld} < n={n}")
     _check(name, data.is_contiguous() and all(t.is_contiguous()
                                               for t in ts),
@@ -172,7 +175,7 @@ def _c_offs(offs):
 def dia_spmv(data, offs, x, n):
     """DIA SpMV (csrc/dia.cu on CUDA, dia_spmv_plain on CPU).  data
     (nd, ld) with ld >= n, row aligned; offs a tuple of nd ints; x (m,).
-    On CUDA: nd <= 48 and x of the table's dtype."""
+    On CUDA: nd <= 64 and x of the table's dtype."""
     if _on_cpu(data, x):
         return dia_spmv_plain(data, offs, x, n)
     name = "dia_spmv"
@@ -192,7 +195,8 @@ def dia_spmv(data, offs, x, n):
 
 def dia_jacobi_sweep(data, offs, x, b, dw):
     """Fused DIA Jacobi sweep (csrc/dia.cu on CUDA); x, b, dw (n,) of the
-    table's dtype.  Returns a new x; the input is not overwritten."""
+    table's dtype, nd <= 64.  Returns a new x; the input is not
+    overwritten."""
     if _on_cpu(data, x, b, dw):
         return dia_jacobi_sweep_plain(data, offs, x, b, dw)
     name = "dia_jacobi_sweep"
@@ -332,7 +336,7 @@ class _DiaStage(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in ("rows", "cols", "nwin",
                                              "sweep", "tstride", "period",
                                              "nrun")] \
-        + [(f, ctypes.c_int * (DIA_MAX_OFFS + 1))
+        + [(f, ctypes.c_int * (DIA_STAGE_MAX_OFFS + 1))
            for f in ("lo", "len", "base", "sh", "wof", "run_d0", "run_len")]
 
 
@@ -376,7 +380,7 @@ def dia_spmv_multirhs(data, offs, x, n):
     name = "dia_spmv_multirhs"
     _check(name, x.ndim == 2 and 1 <= x.shape[1] <= MAX_RHS,
            f"x{tuple(x.shape)} must be (m, s) with 1 <= s <= {MAX_RHS}")
-    nd, ld = _dia_args(name, data, offs, n, x)
+    nd, ld = _dia_args(name, data, offs, n, x, max_offs=DIA_STAGE_MAX_OFFS)
     m, s = x.shape
     plan = _plan(name, data, offs, s)
     lib = load()
@@ -403,7 +407,8 @@ def dia_jacobi_sweep_multirhs(data, offs, x, b, dw):
            f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
            f"dw{tuple(dw.shape)} (need (n, s), s <= {MAX_RHS}, and (n,))")
     n, s = x.shape
-    nd, ld = _dia_args(name, data, offs, n, x, b, dw)
+    nd, ld = _dia_args(name, data, offs, n, x, b, dw,
+                       max_offs=DIA_STAGE_MAX_OFFS)
     plan = _plan(name, data, offs, s, sweep=True)
     lib = load()
     out = torch.empty_like(x)

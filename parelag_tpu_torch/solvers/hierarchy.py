@@ -55,17 +55,32 @@ class Hierarchy(nn.Module):
         (n, s) (s right-hand sides at once)."""
         return self.cycle(b)
 
-    def cast(self, dtype):
+    def cast(self, dtype, keep_coarse_inv=True):
         """A copy with every floating buffer cast to `dtype` (e.g.
         torch.bfloat16: the preconditioner tolerates low precision and
-        the SpMVs are bytes-bound), except the coarse dense inverse,
-        which keeps its precision: it is small and its conditioning
-        matters most.  (Module.to casts in place, hence the copy.)"""
+        the SpMVs are bytes-bound).  The coarse dense inverse keeps its
+        precision by default: it is small and its conditioning matters
+        most; keep_coarse_inv=False casts it too (every buffer in one
+        dtype, as build_device_sa_hierarchy asks).  (Module.to casts in
+        place, hence the copy.)"""
         new = copy.deepcopy(self).to(as_torch_dtype(dtype))
-        for lvl, old in zip(new.levels, self.levels):
-            if old.coarse_inv is not None:
-                lvl.coarse_inv = old.coarse_inv
+        if keep_coarse_inv:
+            for lvl, old in zip(new.levels, self.levels):
+                if old.coarse_inv is not None:
+                    lvl.coarse_inv = old.coarse_inv
         return new
+
+
+def level_operators(H):
+    """The operators a cycle of H applies, as (label, operator) in level
+    order: A_l, P_l and R_l of every level above the coarsest (whose
+    dense inverse stands in for its A), each in the format the build
+    gave it."""
+    out = []
+    for l, lvl in enumerate(H.levels):
+        if lvl.coarse_inv is None:
+            out += [(f"A{l}", lvl.A), (f"P{l}", lvl.P), (f"R{l}", lvl.R)]
+    return out
 
 
 def _cycle(levels, l, b, x, mu, x_is_zero=False):

@@ -6,6 +6,9 @@ Counterpart of parelag_tpu/solvers/smoothers.py; ported so far:
                  variant, reference ParELAG_HypreSmootherFactory.cpp:
                  73-84).  On a DIA operator its sweeps run as fused
                  kernels (DiaMatrix.jacobi_sweeps).
+  * block Jacobi — x += omega * B^{-1} (b - A x) with B^{-1} a
+                 BlockDiagInverse (the facet blocks of the hybridized
+                 multiplier system, amge/hybridization.py).
   * Hiptmair   — primary smoother + potential-space smoothing through D:
                  x += D S_aux(D^T r) (reference ParELAG_HiptmairSmoother.
                  hpp:25-90), the H(curl) smoother of the Maxwell lane; its
@@ -69,6 +72,31 @@ def make_l1_jacobi(A_scipy, sweeps=1, omega=1.0,
     d = np.where(d > 0, d, 1.0)
     return L1JacobiSmoother(
         torch.as_tensor(1.0 / d).to(resolve_device(device)), sweeps, omega)
+
+
+class BlockJacobiSmoother(nn.Module):
+    """Damped block-Jacobi smoother over a block-contiguous permuted
+    system (the facet supervariables of the hybridized multiplier
+    system, amge.hybridization._facet_blocks; point smoothers are
+    near-singular on the spectral coarse multiplier systems).  `binv`
+    is an ops.device_sparse.BlockDiagInverse."""
+
+    def __init__(self, binv, sweeps=1, omega=0.7):
+        super().__init__()
+        self.binv = binv
+        self.sweeps = int(sweeps)
+        self.omega = float(omega)
+
+    def apply(self, A, b, x):
+        for _ in range(self.sweeps):
+            x = x + self.omega * (self.binv @ (b - A @ x))
+        return x
+
+    def apply_zero(self, A, b):
+        x = self.omega * (self.binv @ b)
+        for _ in range(self.sweeps - 1):
+            x = x + self.omega * (self.binv @ (b - A @ x))
+        return x
 
 
 class HiptmairSmoother(nn.Module):

@@ -435,33 +435,37 @@ def test_svd_basis_on_card(card):
         assert np.isfinite(Ud).all() and np.abs(sd - sh).max() <= 1e-10
 
 
-def _generic_operators():
-    """A0, the widest coarse A and P0 of the generic engine's H1 chain
-    at 16^3 over 3 levels (host backend)."""
+def _generic_operators(card):
+    """The BCSR operators of the generic engine's f32 hierarchy on the
+    card (H1 chain at 16^3 over 3 levels, host backend), as the path
+    gives them (hierarchy.level_operators)."""
     from parelag_tpu_torch import generic_lane
-    from parelag_tpu_torch.solvers.hierarchy import rap
+    from parelag_tpu_torch.ops.device_sparse import BcsrMatrix
+    from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
+    from parelag_tpu_torch.solvers.hierarchy import level_operators
     seqs, A, _, _ = generic_lane.build_h1(16, "host", "cpu", min_coarse=8)
-    A_levels, P_levels = [A], []
-    for s in seqs[:-1]:
-        P_levels.append(s.P[0])
-        A_levels.append(rap(A_levels[-1], s.P[0]))
-    return generic_lane.bcsr_shapes(A_levels, P_levels)
+    H, _, _ = build_amge_hierarchy(seqs, 0, A.astype(np.float32),
+                                   sweeps=generic_lane.SWEEPS,
+                                   dtype=np.float32, device=card)
+    return [(label, M) for label, M in level_operators(H)
+            if isinstance(M, BcsrMatrix)]
 
 
 @pytest.mark.cuda
 def test_bcsr_kernel_on_generic_operators(card):
     """bcsr_spmv on the generic path's uneven rows (P0: 1 to ~8 nonzeros,
     coarse RAP rows long and uneven) against its plain version."""
-    for label, M in _generic_operators():
-        B = to_bcsr(M, torch.float32, device=card)
-        x = torch.as_tensor(np.random.RandomState(2).randn(M.shape[1])
+    ops = _generic_operators(card)
+    assert len(ops) >= 3
+    for label, B in ops:
+        n, m = B.shape
+        x = torch.as_tensor(np.random.RandomState(2).randn(m)
                             .astype(np.float32)).to(card)
         before = hk.LAUNCHES["bcsr_spmv"]
         y = B @ x
         torch.cuda.synchronize()
         assert hk.LAUNCHES["bcsr_spmv"] == before + 1, label
-        yp = hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values, x,
-                                M.shape[0])
+        yp = hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values, x, n)
         assert _rel(y, yp) <= LIMIT[torch.float32], label
 
 
@@ -477,3 +481,99 @@ def test_generic_lane_and_entry_on_card(card):
     y = fn(*args)
     fc, ac = entry.entry("cpu")
     assert _rel(y.cpu(), fc(*ac)) <= 1e-5
+
+
+def _dense_offsets(n, nd):
+    """An n x n operator with nd full diagonals (offsets spread over
+    +-3000, both signs, past both ends of the rows)."""
+    rng = np.random.RandomState(nd)
+    offs = sorted(rng.choice(np.arange(-3000, 3000), nd, replace=False))
+    return sp.diags([rng.rand(n - abs(o)) for o in offs], offs).tocsr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_spmv_at_64_offsets(card, dtype):
+    """The 1-RHS DIA kernels take up to 64 offsets (to_dia_ell keeps as
+    many); 65 are refused, and the staged multi-RHS kernel stays at 48."""
+    n = 50_001
+    D = to_dia(_dense_offsets(n, 64), dtype, card)
+    assert len(D.offs) == 64
+    g = torch.Generator().manual_seed(1)
+    x, b, dw = (torch.randn(n, generator=g).to(dtype).to(card)
+                for _ in range(3))
+    y = hk.dia_spmv(D.data, D.offs, x, n)
+    s = hk.dia_jacobi_sweep(D.data, D.offs, x, b, dw)
+    torch.cuda.synchronize()
+    assert _rel(y, hk.dia_spmv_plain(D.data, D.offs, x, n)) <= LIMIT[dtype]
+    assert _rel(s, hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, dw)) \
+        <= LIMIT[dtype]
+    D65 = to_dia(_dense_offsets(n, 65), dtype, card)
+    with pytest.raises(ValueError, match="max 64"):
+        hk.dia_spmv(D65.data, D65.offs, x, n)
+    with pytest.raises(ValueError, match="max 48"):
+        hk.dia_spmv_multirhs(D.data, D.offs, x[:, None].contiguous(), n)
+
+
+@pytest.mark.cuda
+def test_dia_ell_matrix_on_card(card):
+    """A DiaEllMatrix of the 8^3 multiplier system (29 DIA offsets + a
+    COO remainder): the dia_spmv kernel plus index_add_ against the same
+    matrix on the CPU."""
+    from parelag_tpu_torch import darcy_lane
+    from parelag_tpu_torch.ops.device_sparse import to_dia_ell
+    _, H, _ = darcy_lane.build_darcy_hyb(8)
+    Dg = to_dia_ell(H, np.float32, device=card)
+    Dc = to_dia_ell(H, np.float32, device="cpu")
+    x = torch.as_tensor(np.random.RandomState(3).randn(H.shape[0])
+                        .astype(np.float32))
+    before = hk.LAUNCHES["dia_spmv"]
+    y = Dg @ x.to(card)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["dia_spmv"] == before + 1
+    assert _rel(y.cpu(), Dc @ x) <= LIMIT[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_diag_inverse_on_card(card, dtype):
+    """BlockDiagInverse with 1 x 1, 2 x 2 and 5 x 5 buckets on the card
+    against the CPU."""
+    from parelag_tpu_torch.ops.device_sparse import BlockDiagInverse
+    rng = np.random.RandomState(2)
+    sizes = (1, 2, 5)
+    tensors = [torch.as_tensor(rng.rand(k) if s == 1 else rng.randn(k, s, s))
+               .to(dtype) for s, k in zip(sizes, (300, 200, 100))]
+    Bc = BlockDiagInverse(tensors, sizes)
+    Bg = BlockDiagInverse([t.to(card) for t in tensors], sizes)
+    r = torch.as_tensor(rng.randn(300 + 400 + 500)).to(dtype)
+    assert _rel((Bg @ r.to(card)).cpu(), Bc @ r) <= LIMIT[dtype]
+
+
+@pytest.mark.cuda
+def test_hybridized_solve_on_card(card):
+    """The 8^3 hybridized multiplier solve on the card (f32 PCG, f64
+    host refinement) against the port on the CPU (f64): rtol met, x
+    within 1e-6, the DIA and BCSR kernels launched."""
+    from parelag_tpu_torch import darcy_lane
+    hyb, H, g = darcy_lane.build_darcy_hyb(8)
+    xc = hyb._device_solve(H, g, rtol=1e-8, device="cpu")
+    before = dict(hk.LAUNCHES)
+    xg = hyb._device_solve(H, g, rtol=1e-8, device=card)
+    info = hyb.last_device
+    assert info["dtype"] == "float32" and info["passes"] >= 2
+    assert np.linalg.norm(g - H @ xg) <= 1e-8 * np.linalg.norm(g)
+    assert np.abs(xg - xc).max() <= 1e-6 * np.abs(xc).max()
+    for k in ("dia_spmv", "bcsr_spmv"):
+        assert hk.LAUNCHES[k] > before[k], k
+
+
+@pytest.mark.cuda
+def test_darcy_block_gmres_on_card(card):
+    """The blocked Darcy AMGe GMRES (f64 ELL levels) on the card: the
+    CPU's cycles and the direct solve within 1e-8."""
+    from parelag_tpu_torch import darcy_lane
+    rg, _ = darcy_lane.lane_darcy_block(1, card)
+    rc, _ = darcy_lane.lane_darcy_block(1, "cpu")
+    assert rg["cycles"] == rc["cycles"] and rg["err_vs_direct"] < 1e-8
+    assert rg["kernels"]["ell_spmv"] > 0, rg["kernels"]

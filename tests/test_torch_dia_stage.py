@@ -109,7 +109,7 @@ def test_plan_on_the_flagship_grids(k, dtype):
 
 
 def _random_offs(rng):
-    nd = rng.randint(1, hk.DIA_MAX_OFFS + 1)
+    nd = rng.randint(1, hk.DIA_STAGE_MAX_OFFS + 1)
     spread = rng.choice([100, 3_000, 200_000])
     return tuple(sorted(rng.choice(np.arange(-spread, spread), nd,
                                    replace=False).tolist()))

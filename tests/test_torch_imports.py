@@ -94,11 +94,12 @@ def _entry_points():
     one, on tiny inputs (name -> thunk)."""
     import scipy.sparse as sp
     from parelag_tpu_torch import (
-        convert, entry, flagship, generic_lane, maxwell_lane)
-    from parelag_tpu_torch.amge import structured
+        convert, darcy_lane, entry, flagship, generic_lane, maxwell_lane)
+    from parelag_tpu_torch.amge import spectral, structured
+    from parelag_tpu_torch.amge.hybridization import HybridHdivL2
     from parelag_tpu_torch.ops import batched, device_sparse as ds
     from parelag_tpu_torch.solvers import (
-        amge_solver, autotune, hierarchy, smoothers)
+        amge_solver, autotune, block, cg, hierarchy, sa_amg, smoothers)
     I = sp.identity(8, format="csr")
     D = sp.csr_matrix(np.ones((8, 2)))
     A1, B1 = np.eye(2)[None], np.ones((1, 2, 1))
@@ -143,6 +144,25 @@ def _entry_points():
         "device_sparse.to_bcsr": lambda: ds.to_bcsr(I),
         "device_sparse.to_tilecoo": lambda: ds.to_tilecoo(I),
         "device_sparse.to_dia": lambda: ds.to_dia(I),
+        "device_sparse.to_coo": lambda: ds.to_coo(I),
+        "device_sparse.to_dia_ell": lambda: ds.to_dia_ell(I),
+        "convert.matrix_from_numpy":
+            lambda: convert.matrix_from_numpy(object()),
+        "sa_amg.build_device_sa_hierarchy":
+            lambda: sa_amg.build_device_sa_hierarchy(I),
+        "cg.pcg_host": lambda: cg.pcg_host(I, np.ones(8)),
+        "block.build_darcy_amge_hierarchy":
+            lambda: block.build_darcy_amge_hierarchy([], 0),
+        "spectral.compute_local_spectral_targets(device)":
+            lambda: spectral.compute_local_spectral_targets(
+                [np.eye(2)], 0.1, 1, backend="device"),
+        "HybridHdivL2._device_setup":
+            lambda: HybridHdivL2._device_setup(None, I),
+        "darcy_lane.lane_darcy_hybridized":
+            lambda: darcy_lane.lane_darcy_hybridized(2),
+        "darcy_lane.lane_spe10": lambda: darcy_lane.lane_spe10((2, 2, 2)),
+        "darcy_lane.lane_darcy_block":
+            lambda: darcy_lane.lane_darcy_block(1),
     }
 
 
