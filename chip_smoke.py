@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/H100 port (parelag_tpu_torch) on one card.
 
-    python3 chip_smoke.py       # the 96^3 flagship (1 and 16 RHS), 24^3
+    python3 chip_smoke.py       # the cycle autotune, the 96^3 flagship
+                                # (1 and 16 RHS, then its winner), 24^3
                                 # Maxwell, the generic engine, entry(),
-                                # the hybridized Darcy lanes
+                                # the hybridized Darcy lanes, the
+                                # structured spectral SPE10 lanes
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
@@ -12,11 +14,23 @@
    run fails if it did not.
 2. Main paths, each driven with every launch counter set to 0 just
    before and read just after; each kernel of a path must have run:
+   0. the cycle autotune, flagship.lane_autotune(NX_AUTOTUNE):
+      tune_cycle's grid (l1-Jacobi and Chebyshev, V and W) on the
+      structured 2x2x2 hierarchy (bf16 preconditioner) and the generic
+      2x2x2 and 4x4x4 ones; every candidate's iterations within one of,
+      and its converged flag equal to, the same lane on this machine's
+      CPU;
    a. the H1 flagship, flagship.lane_h1(96, n_rhs=16): structured AMGe
-      setup on the card, bf16 V(2,2)-cycle preconditioned f32 PCG
-      checked in host f64 against the host scipy anchor, then block PCG
-      on 16 right-hand sides through the same hierarchy (every column's
-      host f64 residual, column 0 against its 1-RHS solve);
+      setup on the card, bf16 l1-Jacobi V(2,2)-cycle preconditioned f32
+      PCG checked in host f64 against the host scipy anchor, then block
+      PCG on 16 right-hand sides through the same hierarchy (every
+      column's host f64 residual, column 0 against its 1-RHS solve);
+      then the flagship on the autotune's winner, lane_h1(96,
+      cycle_cfg=..., levels=...) on the same levels (not built again):
+      rel_res <= 1e-4 and iterations within ITER_SLACK of the host
+      anchor with the cycle's sweeps (the winner is a measurement and
+      may change from run to run, so the fused sweep kernels are held
+      to the V(2,2) run);
    b. the Maxwell lane, maxwell_lane.lane_maxwell(24): Hiptmair-smoothed
       2-level AMGe PCG on a curl-curl + mass H(curl) system, with the
       f64 restart loop;
@@ -37,7 +51,20 @@
       run's, and every level's dofs, u_l2_rel and the fine u agree with
       the same lane on this machine's CPU (see check_spe10);
    f. the blocked Darcy AMGe GMRES, darcy_lane.lane_darcy_block
-      (BLOCK_NREF): f64 ELL levels, within 1e-8 of a direct solve.
+      (BLOCK_NREF): f64 ELL levels, within 1e-8 of a direct solve;
+   g. the structured spectral SPE10 setup,
+      spectral_lane.lane_spe10_structured(SPS_CELLS) in f64 on the card:
+      the same lane on this machine's CPU gives the same dims and
+      per-entity counts, u_l2_rel within SPS_U_L2_LIMIT, and both the
+      f64 spot oracle within SPOT_LIMIT;
+   h. the same lane on the full SPE10 grid (60, 220, 85): the JAX host
+      f64 anchor's ndofs_u and coarse_u (a difference passes only where
+      entities sit within NEAR_REL of a keep threshold, each printed),
+      the spot oracle, setup_s and stage seconds beside the anchor's;
+   i. the multilevel chain, spectral_lane.lane_spe10_ml(ML_CELLS): dims
+      per level as on the CPU, stage residuals and the spot oracle in
+      their limits, u_l2_rel within ML_U_L2_LIMIT of the CPU's.
+   (g-i run no hand kernel: their stages are batched torch.linalg.)
    Then each slice at a small size on the card and on the CPU (plain
    versions) must agree: the flagship at 16^3, Maxwell at 6^3, the
    generic engine at 8^3 (the host backend on the CPU against the device
@@ -57,7 +84,10 @@
    function, from the bytes and operations this run's data needs (see
    _compare); format_bytes is what the kernel's own format streams,
    padding included.
-4. Prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   The SPE10 rows include every level's SA hierarchy of the generic
+   SPE10 lane (e), BCSR transfers included.
+4. Prints each phase's seconds, {"kernels": [...]} and, last,
+   {"ok": true, "device": {...}}.
 
 Any failed check exits non-zero before the result lines; without a card
 the script raises and prints no result.  It imports nothing of JAX.
@@ -76,7 +106,8 @@ import torch
 
 from parelag_tpu_torch import (
     darcy_lane, device as pick_device, entry, flagship, generic_lane,
-    kernel_profile, maxwell_lane)
+    kernel_profile, maxwell_lane, spectral_lane)
+from parelag_tpu_torch.amge import structured_spectral as sps
 from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
 from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
 from parelag_tpu_torch.ops.device_sparse import (
@@ -107,6 +138,16 @@ SPE10_L2_LIMIT, SPE10_U_LIMIT = 1e-8, 1e-6
 DARCY_ITER_SLACK = 3    # darcy_hyb iterations above the CPU anchor
 BLOCK_NREF = darcy_lane.BLOCK_NREF      # 16^3 cells, 4 levels
 ITER_SLACK = 2          # PCG iterations vs the host f64 anchor
+NX_AUTOTUNE = 32        # bench.py's autotune size in its full run
+SPS_CELLS = spectral_lane.CELLS          # (30, 55, 21)
+SPS_FULL = spectral_lane.FULL            # (60, 220, 85)
+# the JAX package's host f64 anchor of the structured engine on the full
+# grid (.bench_anchors.json, same field, factors and parameters)
+SPS_FULL_NDOFS_U, SPS_FULL_COARSE_U = 3_403_000, 424_582
+ML_CELLS = spectral_lane.ML_CELLS        # (32, 32, 16)
+# card against the CPU: u_l2_rel relative (structured, multilevel), and
+# the f64 spot oracle's limit (the engine's own for f64)
+SPS_U_L2_LIMIT, ML_U_L2_LIMIT, SPOT_LIMIT = 1e-8, 1e-6, 1e-8
 BATCHES, PER_BATCH = 5, 20   # timed batches of back-to-back launches
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
 # FP32 FLOP/s outside the tensor cores (the kernels' f32 FMAs)
@@ -401,14 +442,15 @@ def _op_rows(rows, path, H, dev, rng):
         del csr
 
 
-def kernel_phase(A0, P0, maxwell, generic, darcy, dev):
+def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, dev):
     """Each kernel against its plain version at the main paths' shapes,
     on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
     the lane's hierarchy holds them, and Hiptmair's level-0 ELL
     matrices.  generic: the generic lane's f32 hierarchy.  darcy: (the
     darcy_hyb path's outer DiaEllMatrix, its SA-AMG hierarchy, the block
-    lane's f64 hierarchy): dia_spmv on the DIA part.  Each hierarchy
+    lane's f64 hierarchy): dia_spmv on the DIA part.  spe10: the SA
+    hierarchy of every level of the SPE10 lane.  Each hierarchy
     gives a row for every operator its cycle applies, in the format the
     path gave it (_op_rows): ELL on the generic A0, the SA A0, A1 and P0
     and every block level, BCSR on the rest, whose uneven rows (~100-600
@@ -437,6 +479,8 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, dev):
     _op_rows(rows, "generic", generic, dev, rng)
     _op_rows(rows, "darcy SA", H_sa, dev, rng)
     _op_rows(rows, "darcy block", H_block, dev, rng)
+    for l, H in enumerate(spe10):
+        _op_rows(rows, f"spe10 L{l} SA", H, dev, rng)
     return rows
 
 
@@ -526,6 +570,27 @@ def check_h1(rec, launches):
             fails.append(f"kernel {k} never launched in the block solves")
     if fails:
         raise SystemExit("FAIL h1 path: " + "; ".join(fails))
+
+
+def check_h1_tuned(rec, launches):
+    """The flagship on the autotune's cycle: converged, rel_res <= 1e-4,
+    iterations within ITER_SLACK of the host anchor, the fine DIA SpMV
+    and the BCSR transfers launched (the smoother's kernels depend on
+    the cycle)."""
+    fails = []
+    if not rec["setup_reused"]:
+        fails.append("the levels were built again")
+    if not rec["converged"]:
+        fails.append(f"PCG did not meet the r.z stop in {rec['iters']}")
+    if abs(rec["iters"] - rec["host_iters"]) > ITER_SLACK:
+        fails.append(f"iters {rec['iters']} vs host {rec['host_iters']}")
+    if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] <= 1e-4):
+        fails.append(f"rel_res {rec['rel_res']} > 1e-4")
+    for k in ("dia_spmv", "bcsr_spmv"):
+        if launches[k] <= 0 or rec["kernels"][k] <= 0:
+            fails.append(f"kernel {k} never launched")
+    if fails:
+        raise SystemExit("FAIL h1_autotuned path: " + "; ".join(fails))
 
 
 def check_maxwell(rec, launches):
@@ -693,6 +758,109 @@ def check_spe10(rec, out, ref, out_ref, launches):
         raise SystemExit("FAIL spe10 path: " + "; ".join(fails))
 
 
+def _row_key(r):
+    return (r["granularity"], json.dumps(r["cfg"], sort_keys=True))
+
+
+def check_autotune(rec, ref, launches):
+    """Every candidate's iterations within one of, and converged equal
+    to, the same lane on the CPU; the DIA and BCSR kernels ran."""
+    fails = []
+    cpu = {_row_key(r): r for r in ref["grid"]}
+    if len(cpu) != len(rec["grid"]):
+        fails.append(f"{len(rec['grid'])} rows against the CPU's "
+                     f"{len(cpu)}")
+    for r in rec["grid"]:
+        c = cpu.get(_row_key(r))
+        print(f"  {r['granularity']:16s} {json.dumps(r['cfg']):52s} iters "
+              f"{r['iters']} (CPU {c and c['iters']}) converged "
+              f"{r['converged']} (CPU {c and c['converged']}) solve_s "
+              f"{r['solve_s']:.5f}")
+        if c is None or abs(r["iters"] - c["iters"]) > 1 \
+                or r["converged"] != c["converged"]:
+            fails.append(f"{_row_key(r)}: {r['iters']}/{r['converged']} "
+                         f"vs the CPU's {c and (c['iters'], c['converged'])}")
+    if "best_structured_cfg" not in rec:
+        fails.append("no structured candidate converged")
+    for k in ("dia_spmv", "dia_jacobi_sweep", "bcsr_spmv"):
+        if launches[k] <= 0:
+            fails.append(f"kernel {k} never launched on the autotune path")
+    if fails:
+        raise SystemExit("FAIL autotune path: " + "; ".join(fails))
+
+
+def check_sps(rec, out, ref, out_ref):
+    """spe10_structured on the card against the same lane on the CPU."""
+    fails = []
+    for k in ("ndofs_u", "coarse_u", "coarse_p"):
+        if rec[k] != ref[k]:
+            fails.append(f"{k} {rec[k]} vs the CPU's {ref[k]}")
+    for k in ("n_facet_dofs", "n_ae_u_dofs", "n_ae_p_dofs"):
+        a, b = getattr(out, k), getattr(out_ref, k)
+        if a.shape != b.shape or (a != b).any():
+            bad = (np.flatnonzero(a != b)[:10].tolist()
+                   if a.shape == b.shape else "shape")
+            fails.append(f"{k} differs from the CPU's at {bad}")
+    dl = abs(rec["u_l2_rel"] - ref["u_l2_rel"]) / ref["u_l2_rel"]
+    print(f"  dims u {rec['ndofs_u']} -> {rec['coarse_u']}, p -> "
+          f"{rec['coarse_p']} (CPU {ref['coarse_u']}, {ref['coarse_p']}); "
+          f"u_l2_rel card {rec['u_l2_rel']:.12f} CPU {ref['u_l2_rel']:.12f}"
+          f" (rel diff {dl:.3e}, limit {SPS_U_L2_LIMIT:g}); ext_spot_err "
+          f"card {rec['ext_spot_err']:.3e} CPU {ref['ext_spot_err']:.3e} "
+          f"(limit {SPOT_LIMIT:g})")
+    if not dl <= SPS_U_L2_LIMIT:
+        fails.append(f"u_l2_rel {rec['u_l2_rel']} vs {ref['u_l2_rel']}")
+    if not max(rec["ext_spot_err"], ref["ext_spot_err"]) < SPOT_LIMIT:
+        fails.append("ext_spot_err above its limit")
+    if fails:
+        raise SystemExit("FAIL spe10_structured path: " + "; ".join(fails))
+
+
+def check_sps_full(rec, out):
+    """The full grid against the JAX host f64 anchor's dims."""
+    fails = []
+    near = {k: v for k, v in out.near_threshold.items() if v}
+    print(f"  ndofs_u {rec['ndofs_u']} (anchor {SPS_FULL_NDOFS_U}), "
+          f"coarse_u {rec['coarse_u']} (anchor {SPS_FULL_COARSE_U}), "
+          f"coarse_p {rec['coarse_p']}; least keep margins "
+          f"{out.min_margin}; entities within {sps.NEAR_REL:g} of a "
+          f"threshold: {near or 'none'}")
+    if rec["ndofs_u"] != SPS_FULL_NDOFS_U:
+        fails.append(f"ndofs_u {rec['ndofs_u']}")
+    if rec["coarse_u"] != SPS_FULL_COARSE_U and not near:
+        fails.append(f"coarse_u {rec['coarse_u']} != the anchor's "
+                     f"{SPS_FULL_COARSE_U}, and no entity sits within "
+                     f"{sps.NEAR_REL:g} of a keep threshold")
+    if not rec["ext_spot_err"] < SPOT_LIMIT:
+        fails.append(f"ext_spot_err {rec['ext_spot_err']}")
+    if fails:
+        raise SystemExit("FAIL spe10_structured full grid: "
+                         + "; ".join(fails))
+
+
+def check_ml(rec, ref):
+    """spe10_ml on the card against the same lane on the CPU."""
+    fails = []
+    for k in ("ndofs_u", "coarse_u", "coarse_p"):
+        if rec[k] != ref[k]:
+            fails.append(f"{k} {rec[k]} vs the CPU's {ref[k]}")
+    dl = abs(rec["u_l2_rel"] - ref["u_l2_rel"]) / ref["u_l2_rel"]
+    print(f"  coarse_u {rec['coarse_u']} coarse_p {rec['coarse_p']} (CPU "
+          f"{ref['coarse_u']} {ref['coarse_p']}); ns_res {rec['ns_res']:.3e}"
+          f" (limit {sps._GUARD_TOL:g}); ext_spot_err "
+          f"{rec['ext_spot_err']:.3e} (limit {SPOT_LIMIT:g}); u_l2_rel card "
+          f"{rec['u_l2_rel']:.10f} CPU {ref['u_l2_rel']:.10f} (rel diff "
+          f"{dl:.3e}, limit {ML_U_L2_LIMIT:g})")
+    if not rec["ns_res"] < sps._GUARD_TOL:
+        fails.append(f"ns_res {rec['ns_res']}")
+    if not rec["ext_spot_err"] < SPOT_LIMIT:
+        fails.append(f"ext_spot_err {rec['ext_spot_err']}")
+    if not dl <= ML_U_L2_LIMIT:
+        fails.append(f"u_l2_rel {rec['u_l2_rel']} vs {ref['u_l2_rel']}")
+    if fails:
+        raise SystemExit("FAIL spe10_ml path: " + "; ".join(fails))
+
+
 def check_block(rec, launches):
     if not (rec["err_vs_direct"] < 1e-8 and launches["ell_spmv"] > 0
             and rec["kernels"]["ell_spmv"] > 0):
@@ -776,10 +944,30 @@ def main():
     if not native.available():
         raise SystemExit("FAIL native: the host library did not load")
 
+    phase_s = {}
+
+    def phase(name, t0):
+        phase_s[name] = time.perf_counter() - t0
+        print(f"  phase {name}: {phase_s[name]:.1f} s")
+
     # ---- main paths ----------------------------------------------------
+    t0 = time.perf_counter()
+    print(f"main path autotune (flagship.lane_autotune({NX_AUTOTUNE})):")
+    at, l_at = _path("autotune",
+                     lambda: flagship.lane_autotune(NX_AUTOTUNE, dev))
+    print("  record: " + json.dumps(at))
+    at_ref = flagship.lane_autotune(NX_AUTOTUNE, "cpu", repeats=1)
+    check_autotune(at, at_ref, l_at)
+    cycle_cfg = at.get("best_structured_cfg") or at.get("best_cfg")
+    print(f"  winner: best_structured_cfg {at.get('best_structured_cfg')} "
+          f"best_cfg {at.get('best_cfg')} ({at.get('best_granularity')})")
+    phase("autotune", t0)
+
+    t0 = time.perf_counter()
     print("main path h1 (flagship.lane_h1, 1 and 16 RHS):")
-    (rec, (A_levels, P_levels, _)), l_h1 = _path(
+    (rec, h1_levels), l_h1 = _path(
         "h1", lambda: flagship.lane_h1(NX, dev, n_rhs=N_RHS))
+    A_levels, P_levels, _ = h1_levels
     mr = rec["multirhs"]
     print("  record: " + json.dumps(rec))
     print(f"  ndofs={rec['ndofs']} levels={rec['levels']} "
@@ -800,13 +988,32 @@ def main():
           f"{mr['achieved_tflops']:.4f} col0 vs 1-RHS "
           f"{mr['col0_rel_diff']:.3e} ({mr['col0_iters']} iters)")
     check_h1(rec, l_h1)
+    phase("h1", t0)
 
+    t0 = time.perf_counter()
+    print(f"main path h1_autotuned (flagship.lane_h1 on the autotune's "
+          f"winner, the same levels): cycle_cfg {json.dumps(cycle_cfg)}")
+    trec, l_h1t = _path("h1_autotuned", lambda: flagship.lane_h1(
+        NX, dev, cycle_cfg=cycle_cfg, levels=h1_levels)[0])
+    print("  record: " + json.dumps(trec))
+    print(f"  cycle_cfg {json.dumps(trec['cycle_cfg'])}: iters "
+          f"{trec['iters']} (host anchor, sweeps {trec['sweeps']}: "
+          f"{trec['host_iters']}) rel_res {trec['rel_res']:.3e} solve_s "
+          f"{trec['solve_s']:.5f} (V(2,2) above: {rec['solve_s']:.5f}) "
+          f"dof_iter_per_s {trec['dof_iter_per_s']:.4e}")
+    check_h1_tuned(trec, l_h1t)
+    del h1_levels
+    phase("h1_autotuned", t0)
+
+    t0 = time.perf_counter()
     print(f"main path maxwell (maxwell_lane.lane_maxwell({NX_MAXWELL})):")
     (mrec, (MA, MP, MD0, _)), l_mx = _path(
         "maxwell", lambda: maxwell_lane.lane_maxwell(NX_MAXWELL, dev))
     print("  record: " + json.dumps(mrec))
     check_maxwell(mrec, l_mx)
+    phase("maxwell", t0)
 
+    t0 = time.perf_counter()
     print(f"main path generic (generic_lane.lane_generic({NX_GENERIC}), "
           "pass 2 on the card):")
     (grec, (_, _, _, H_gen)), l_gen = _path(
@@ -828,7 +1035,9 @@ def main():
           f"dof_iter_per_s={grec['dof_iter_per_s']:.4e} "
           f"kernels={grec['kernels']}")
     check_generic(grec, l_gen)
+    phase("generic", t0)
 
+    t0 = time.perf_counter()
     print(f"main path darcy_hyb (darcy_lane.lane_darcy_hybridized("
           f"{NX_DARCY})):")
     (drec, (dhyb, Hs, gf, _, darcy_Hd, darcy_H)), l_dh = _path(
@@ -846,7 +1055,9 @@ def main():
           f"kernels={drec['kernels']}")
     check_darcy(drec, l_dh, darcy_anchor(dhyb, Hs, gf))
     del dhyb, Hs, gf
+    phase("darcy_hyb", t0)
 
+    t0 = time.perf_counter()
     print(f"main path spe10 (darcy_lane.lane_spe10({SPE10_CELLS})):")
     (srec, sout), l_sp = _path(
         "spe10", lambda: darcy_lane.lane_spe10(SPE10_CELLS, dev))
@@ -855,32 +1066,97 @@ def main():
     sref, sout_ref = darcy_lane.lane_spe10(SPE10_CELLS, "cpu")
     print(f"  the same lane on the CPU: {time.perf_counter() - t0:.1f} s")
     check_spe10(srec, sout, sref, sout_ref, l_sp)
+    spe10_H = [H for H in sout["device_hierarchies"] if H is not None]
+    print(f"  SA transfers per level: "
+          f"{[d['sa_transfers'] for d in srec['device_solves']]}")
     del sout, sout_ref
+    phase("spe10", t0)
 
+    t0 = time.perf_counter()
     print(f"main path darcy block (darcy_lane.lane_darcy_block("
           f"{BLOCK_NREF})):")
     (brec, (block_H, _)), l_bk = _path(
         "darcy_block", lambda: darcy_lane.lane_darcy_block(BLOCK_NREF, dev))
     print("  record: " + json.dumps(brec))
     check_block(brec, l_bk)
+    phase("darcy_block", t0)
 
+    t0 = time.perf_counter()
+    print(f"main path spe10_structured (spectral_lane."
+          f"lane_spe10_structured({SPS_CELLS}), f64):")
+    field, coeff = spectral_lane.spe10_coeff(SPS_CELLS)
+    fine = spectral_lane.fine_darcy(SPS_CELLS, coeff, field.sizes)
+    print(f"  fine Darcy solve for u_l2_rel (host): "
+          f"{time.perf_counter() - t0:.1f} s")
+    (xrec, xout), l_sx = _path(
+        "spe10_structured", lambda: spectral_lane.lane_spe10_structured(
+            SPS_CELLS, device=dev, u_l2=True, fine=fine))
+    print("  record: " + json.dumps(xrec))
+    t1 = time.perf_counter()
+    xref, xout_ref = spectral_lane.lane_spe10_structured(
+        SPS_CELLS, device="cpu", u_l2=True, fine=fine)
+    print(f"  the same lane on the CPU: setup_s {xref['setup_s']:.2f}, "
+          f"{time.perf_counter() - t1:.1f} s in all")
+    check_sps(xrec, xout, xref, xout_ref)
+    del fine, xout, xout_ref
+    phase("spe10_structured", t0)
+
+    t0 = time.perf_counter()
+    print(f"main path spe10_structured full grid (spectral_lane."
+          f"lane_spe10_structured({SPS_FULL}), f64):")
+    (frec, fout), l_sf = _path(
+        "spe10_full", lambda: spectral_lane.lane_spe10_structured(
+            SPS_FULL, device=dev))
+    print("  record: " + json.dumps(frec))
+    print(f"  setup_s {frec['setup_s']:.2f} (stages "
+          + ", ".join(f"{k} {v:.2f}" for k, v in frec["stage_s"].items())
+          + f"); the JAX host f64 anchor {frec['host_anchor_setup_s']:.1f} s"
+          f" ({frec['host_anchor_kind']}, {frec['host_anchor_measured_utc']}"
+          f", a host CPU time); peak card memory "
+          f"{frec['peak_mem_bytes'] / 1e9:.2f} GB")
+    check_sps_full(frec, fout)
+    del fout
+    phase("spe10_full", t0)
+
+    t0 = time.perf_counter()
+    print(f"main path spe10_ml (spectral_lane.lane_spe10_ml({ML_CELLS}), "
+          "f64):")
+    field, coeff = spectral_lane.spe10_coeff(ML_CELLS)
+    fine = spectral_lane.fine_darcy(ML_CELLS, coeff, field.sizes)
+    (lrec, _), l_ml = _path(
+        "spe10_ml", lambda: spectral_lane.lane_spe10_ml(
+            ML_CELLS, device=dev, fine=fine))
+    print("  record: " + json.dumps(lrec))
+    lref, _ = spectral_lane.lane_spe10_ml(ML_CELLS, device="cpu", fine=fine)
+    check_ml(lrec, lref)
+    del fine
+    phase("spe10_ml", t0)
+
+    t0 = time.perf_counter()
     small_check(dev)
     small_check_maxwell(dev)
     small_check_generic(dev)
     check_entry(dev)
     small_check_darcy(dev)
+    phase("small checks", t0)
 
     # ---- kernel phase ------------------------------------------------
+    t0 = time.perf_counter()
     print("kernel phase (kernel vs plain on the card):")
     rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
-                        (darcy_Hd, darcy_H, block_H), dev)
+                        (darcy_Hd, darcy_H, block_H), spe10_H, dev)
+    phase("kernels", t0)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
         r = rows[name]
         head = r[PRIMARY.get(name, 0)]
-        by_path = {"h1": l_h1[name], "maxwell": l_mx[name],
-                   "generic": l_gen[name], "darcy_hyb": l_dh[name],
-                   "spe10": l_sp[name], "darcy_block": l_bk[name]}
+        by_path = {"autotune": l_at[name], "h1": l_h1[name],
+                   "h1_autotuned": l_h1t[name],
+                   "maxwell": l_mx[name], "generic": l_gen[name],
+                   "darcy_hyb": l_dh[name], "spe10": l_sp[name],
+                   "darcy_block": l_bk[name],
+                   "spe10_structured": l_sx[name],
+                   "spe10_full": l_sf[name], "spe10_ml": l_ml[name]}
         kernels.append(dict(
             name=name, path=path, route="cuda", source=src,
             replaces=replaces,
@@ -889,12 +1165,15 @@ def main():
                               if v["variant"].startswith("generic")],
             darcy_variants=[v["variant"] for v in r
                             if v["variant"].startswith("darcy")],
+            spe10_variants=[v["variant"] for v in r
+                            if v["variant"].startswith("spe10")],
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             format_bytes=head["format_bytes"],
             library_ms=head["library_ms"], variants=r))
+    print(f"phase seconds {json.dumps(phase_s)}")
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,3 +35,9 @@ def resolve_device(dev=None):
     the card (RuntimeError without one); the CPU only when the caller
     names it (device="cpu")."""
     return device() if dev is None else torch.device(dev)
+
+
+def synchronize(dev):
+    """Wait for the work queued on `dev` (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

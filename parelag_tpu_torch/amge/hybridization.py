@@ -403,9 +403,9 @@ class HybridHdivL2:
         passes, each to inner rtol max(rtol, 1e-6), until the true
         relative residual meets rtol (reliable-updates CG: the f32 loop
         stalls near its dtype floor); f64: one pass at rtol.  Sets
-        last_iterations (all passes), last_passes and last_device (the
+        last_iterations (all passes), last_passes, last_device (the
         solve's iterations, passes, true relative residual in host f64
-        and formats)."""
+        and formats) and last_hierarchy (its SA hierarchy)."""
         from parelag_tpu_torch.solvers.cg import pcg
         device = resolve_device(device)
         n = Hcsr.shape[0]
@@ -434,6 +434,7 @@ class HybridHdivL2:
             r = gf - H64 @ x
         self.last_iterations = total_it
         self.last_passes = passes
+        self.last_hierarchy = Hier
         # what a lane reports of this solve (a later host solve on the
         # same object overwrites last_iterations, never this)
         self.last_device = dict(

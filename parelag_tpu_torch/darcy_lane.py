@@ -39,7 +39,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from parelag_tpu_torch import resolve_device
+from parelag_tpu_torch import resolve_device, synchronize
 from parelag_tpu_torch.amge import hexfe
 from parelag_tpu_torch.amge.fespace import DeRhamSequenceFE
 from parelag_tpu_torch.amge.hybridization import HybridHdivL2
@@ -58,11 +58,6 @@ NX, SPE10_CELLS, RTOL = 64, (30, 55, 21), 1e-8
 BLOCK_NREF, BLOCK_RTOL = 3, 1e-8
 #: timed solves (the median is reported)
 REPEATS = 3
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _timed(fn, device):
@@ -120,7 +115,7 @@ def lane_darcy_hybridized(nx=NX, device=None):
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, Hd, Hier, *_ = hyb._device_setup(Hs, device)
-    _sync(device)
+    synchronize(device)
     amg_setup_s = time.perf_counter() - t0
 
     def solve():
@@ -197,7 +192,7 @@ def lane_darcy_block(nref=BLOCK_NREF, device=None):
         nref_parallel=nref, partition="derefine", aggressive_levels=0)
     H, A_levels, n0s = build_darcy_amge_hierarchy(
         seqs, sweeps=3, omega=0.6, device=device)
-    _sync(device)
+    synchronize(device)
     setup_s = time.perf_counter() - t0
     vols = hexfe.hex_volumes(mesh.vertices[mesh.elements])
     b = np.concatenate([np.zeros(n0s[0]), vols])

@@ -9,11 +9,15 @@ The host pieces (boundary elimination, the Galerkin propagation of the
 elimination term, the f64 scipy anchor) are copies of the JAX bench's
 host code; `eliminate_rowcols` is models/upscaling.py's.
 With n_rhs set, lane_h1 adds the multi-RHS record of bench.py (block
-PCG on n_rhs right-hand sides through the same hierarchy).
+PCG on n_rhs right-hand sides through the same hierarchy); with
+cycle_cfg it runs that cycle (lane_autotune's winner, as bench.py feeds
+its autotune lane's winner to the flagship).
 
     from parelag_tpu_torch import flagship
     record, _ = flagship.lane_h1(96)              # on the card
     record, _ = flagship.lane_h1(96, n_rhs=16)    # + record["multirhs"]
+    at = flagship.lane_autotune(32)
+    record, _ = flagship.lane_h1(96, cycle_cfg=at["best_structured_cfg"])
 """
 
 import time
@@ -21,13 +25,13 @@ import time
 import numpy as np
 import torch
 
-from parelag_tpu_torch import resolve_device
+from parelag_tpu_torch import resolve_device, synchronize
 from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.models.upscaling import eliminate_rowcols
 from parelag_tpu_torch.ops.device_sparse import (
     BC, BR, BcsrMatrix, DiaMatrix, EllMatrix)
 from parelag_tpu_torch.ops import hopper_kernels
-from parelag_tpu_torch.solvers.autotune import _factory
+from parelag_tpu_torch.solvers.autotune import _factory, tune_cycle
 from parelag_tpu_torch.solvers.cg import pcg
 from parelag_tpu_torch.solvers.hierarchy import build_hierarchy
 
@@ -155,14 +159,16 @@ def host_vcycle_pcg(A_levels, P_levels, b, rtol, maxiter=100, sweeps=2,
     return x, it + 1
 
 
-def build_solver(A_levels, P_levels, device=None):
+def build_solver(A_levels, P_levels, device=None, cycle_cfg=None):
     """The flagship's device hierarchy in f32 (device None: the card):
-    DIA operators (<= 48 offsets, else BCSR), bf16 transfers, l1-Jacobi
-    V(2,2).  Returns (H, Hb) with Hb = H cast to bf16 (the
-    preconditioner; its coarse inverse stays f32)."""
+    DIA operators (<= 48 offsets, else BCSR), bf16 transfers, the cycle
+    cycle_cfg (None: CYCLE, l1-Jacobi V(2,2)).  Returns (H, Hb) with Hb
+    = H cast to bf16 (the preconditioner; its coarse inverse stays
+    f32)."""
     device = resolve_device(device)
-    H = build_hierarchy(A_levels, P_levels, _factory(CYCLE, device),
-                        mu=CYCLE["mu"], dtype=np.float32,
+    cfg = cycle_cfg or CYCLE
+    H = build_hierarchy(A_levels, P_levels, _factory(cfg, device),
+                        mu=cfg.get("mu", 1), dtype=np.float32,
                         matrix_format="dia", transfer_dtype=torch.bfloat16,
                         device=device)
     return H, H.cast(torch.bfloat16)
@@ -255,26 +261,34 @@ def multirhs_record(H, Hb, A0, n_rhs):
                 col0_iters=int(it0), col0_rel_diff=col0, kernels=kernels)
 
 
-def lane_h1(nx, device=None, n_rhs=None, min_coarse=256):
+def lane_h1(nx, device=None, n_rhs=None, min_coarse=256, cycle_cfg=None,
+            levels=None):
     """The flagship record on the card: setup (structured chain + device
     hierarchy), one warm f32 PCG solve checked in host f64, REPEATS
     solves timed with CUDA events (median), and the host f64 scipy
     anchor on the same matrices.  `kernels` holds the hand-kernel
     launches of the timed solves, read after them.  With n_rhs, the
     record's "multirhs" entry is multirhs_record on the same hierarchy.
-    Returns (record, (A_levels, P_levels, b)); refuses to run without a
-    card."""
+    cycle_cfg: the cycle (a DEFAULT_GRID row of solvers/autotune, None:
+    CYCLE); the host anchor smooths with its sweeps (a Chebyshev
+    degree stands in for them), as bench.py::lane_h1 sets them.
+    levels: the (A_levels, P_levels, b) an earlier lane_h1 of the same
+    grid returned, reused instead of built (setup_s then counts the
+    device hierarchy alone).  Returns (record, (A_levels, P_levels, b));
+    refuses to run without a card."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("lane_h1 measures the card and needs a CUDA "
                            f"device, not {device}")
     dtype = np.float32
+    cfg = cycle_cfg or CYCLE
+    sweeps = int(cfg.get("sweeps", cfg.get("degree", 2)))
     hopper_kernels.load()            # build the kernels outside setup_s
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    A_levels, P_levels, b = build_h1_structured(nx, min_coarse, dtype,
-                                                device)
-    H, Hb = build_solver(A_levels, P_levels, device)
+    A_levels, P_levels, b = levels or build_h1_structured(
+        nx, min_coarse, dtype, device)
+    H, Hb = build_solver(A_levels, P_levels, device, cfg)
     torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t0
     ndofs = A_levels[0].shape[0]
@@ -291,6 +305,8 @@ def lane_h1(nx, device=None, n_rhs=None, min_coarse=256):
     solve_s = float(np.median(times))
 
     out = dict(metric="h1_amge_vcycle_pcg_throughput", ndofs=ndofs,
+               cycle_cfg=dict(cfg), sweeps=sweeps,
+               setup_reused=levels is not None,
                levels=len(H.levels),
                level_shapes=[int(a.shape[0]) for a in A_levels],
                formats=[type(l.A).__name__ for l in H.levels],
@@ -309,7 +325,7 @@ def lane_h1(nx, device=None, n_rhs=None, min_coarse=256):
     prepared = host_vcycle_prepare(Ah)
     t0 = time.perf_counter()
     _, ith = host_vcycle_pcg(Ah, Ph, b64, rtol=RTOL, maxiter=MAXITER,
-                             prepared=prepared)
+                             sweeps=sweeps, prepared=prepared)
     host_dt = time.perf_counter() - t0
     out.update(host_iters=ith, host_solve_s=host_dt,
                host_dof_iter_per_s=ndofs * ith / host_dt)
@@ -317,3 +333,82 @@ def lane_h1(nx, device=None, n_rhs=None, min_coarse=256):
     if n_rhs:
         out["multirhs"] = multirhs_record(H, Hb, A_levels[0], n_rhs)
     return out, (A_levels, P_levels, b)
+
+
+def lane_autotune(nx=32, device=None, repeats=3):
+    """The cycle autotune record (bench.py::lane_autotune): tune_cycle's
+    DEFAULT_GRID on three H1 hierarchies of the nx^3 grid on `device`
+    (None: the card) --
+      * the structured 2x2x2 chain (build_h1_structured, the flagship's
+        setup) with DIA operators and the bf16 preconditioner;
+      * the generic engine's 2x2x2 and 4x4x4 chains
+        (generic_lane.build_h1 with pass 2 on `device`, min_coarse 64,
+        operators from build_amge_hierarchy), DIA operators in f32;
+    a factor set the grid does not divide, or that leaves one level, is
+    skipped.  The record keeps the JAX lane's fields: grid (every row:
+    granularity, cfg, iters, solve_s, converged), setup_s and tune_s per
+    granularity, best_structured_cfg (the flagship's cycle), best_cfg
+    and best_granularity (fastest over all), iters, solve_s and value
+    (dof*iter/s of the winner); solve_s is timed with CUDA events on the
+    card and the host clock on the CPU."""
+    from parelag_tpu_torch import generic_lane
+    from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
+    device = resolve_device(device)
+    if device.type == "cuda":
+        hopper_kernels.load()
+    out = dict(metric="h1_amge_cycle_autotune", grid=[], setup_s={},
+               tune_s={})
+    best_all = None
+
+    def record(gran, table, best, ndofs, setup_s, tune_s):
+        nonlocal best_all
+        out["setup_s"][gran] = setup_s
+        out["tune_s"][gran] = tune_s
+        out["grid"] += [dict(granularity=gran, cfg=r["cfg"],
+                             iters=r["iters"], solve_s=r["solve_s"],
+                             rel_res=r["rel_res"],
+                             converged=r["converged"]) for r in table]
+        if best and (best_all is None
+                     or best["solve_s"] < best_all["solve_s"]):
+            best_all = dict(best, granularity=gran, ndofs=ndofs)
+
+    t0 = time.perf_counter()
+    A_l, P_l, b_s = build_h1_structured(nx, device=device)
+    synchronize(device)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    best, table = tune_cycle(A_l, P_l, b_s, rtol=RTOL, dtype=np.float32,
+                             matrix_format="dia",
+                             precond_dtype=torch.bfloat16,
+                             repeats=repeats, device=device)
+    record("structured-2x2x2", table, best, A_l[0].shape[0], setup_s,
+           time.perf_counter() - t0)
+    if best:
+        out["best_structured_cfg"] = best["cfg"]
+    for factors in ((2, 2, 2), (4, 4, 4)):
+        if generic_lane.n_levels(nx, 64, factors) < 2:
+            continue
+        t0 = time.perf_counter()
+        topo = generic_lane.build_topologies(nx, 64, factors)
+        seqs, A, b, _ = generic_lane.build_h1(nx, "device", device, 64,
+                                              topo)
+        _, A_levels, P_levels = build_amge_hierarchy(
+            seqs, 0, A.astype(np.float32), dtype=np.float32,
+            matrix_format="dia", device=device)
+        synchronize(device)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        best, table = tune_cycle(A_levels, P_levels, b, rtol=RTOL,
+                                 dtype=np.float32, matrix_format="dia",
+                                 repeats=repeats, device=device)
+        out["ndofs"] = A.shape[0]
+        record("x".join(map(str, factors)), table, best, A.shape[0],
+               setup_s, time.perf_counter() - t0)
+    if best_all:
+        out.update(best_cfg=best_all["cfg"],
+                   best_granularity=best_all["granularity"],
+                   iters=best_all["iters"], solve_s=best_all["solve_s"],
+                   value=best_all["ndofs"] * best_all["iters"]
+                   / best_all["solve_s"],
+                   unit="dof_iter_per_s", device=str(device))
+    return out

@@ -47,27 +47,30 @@ SWEEPS, RTOL, MAXITER = flagship.CYCLE["sweeps"], flagship.RTOL, \
 REPEATS = 3
 
 
-def n_levels(nx, min_coarse=MIN_COARSE):
-    """Levels of the chain on an nx^3 grid (bench.py::lane_setup's loop):
-    coarsen 2x2x2 while every axis keeps >= 4 cells and the coarse grid
-    >= min_coarse cells."""
-    nlev, side = 1, nx
-    while side >= 4 and (side // 2) ** 3 >= min_coarse:
-        nlev, side = nlev + 1, side // 2
+def n_levels(nx, min_coarse=MIN_COARSE, factors=(2, 2, 2)):
+    """Levels of the chain on an nx^3 grid (bench.py::_build_h1's loop):
+    coarsen by `factors` while every axis divides and keeps >= 2 * f
+    cells and the coarse grid >= min_coarse cells."""
+    nlev, shape = 1, (nx,) * 3
+    while (all(s % f == 0 and s >= 2 * f for s, f in zip(shape, factors))
+           and np.prod([s // f for s, f in zip(shape, factors)])
+           >= min_coarse):
+        nlev, shape = nlev + 1, tuple(s // f for s, f in zip(shape,
+                                                             factors))
     return nlev
 
 
-def build_topologies(nx, min_coarse=MIN_COARSE):
+def build_topologies(nx, min_coarse=MIN_COARSE, factors=(2, 2, 2)):
     """(mesh, [fine topology, coarser ...]) of the nx^3 hex grid of
-    [0,1]^3, 2x2x2 agglomerates a level, n_levels(nx, min_coarse)
-    topologies."""
+    [0,1]^3, `factors` cartesian agglomerates a level,
+    n_levels(nx, min_coarse, factors) topologies."""
     mesh = hex_grid_mesh(nx, nx, nx)
     topos = [AgglomeratedTopology.from_mesh(mesh)]
-    side = nx
-    for _ in range(n_levels(nx, min_coarse) - 1):
-        part = cartesian_partition((side,) * 3, (2, 2, 2))
+    shape = (nx,) * 3
+    for _ in range(n_levels(nx, min_coarse, factors) - 1):
+        part = cartesian_partition(shape, tuple(factors))
         topos.append(topos[-1].coarsen_local_partitioning(part))
-        side //= 2
+        shape = tuple(s // f for s, f in zip(shape, factors))
     return mesh, topos
 
 

@@ -58,6 +58,10 @@ torch.profiler (CPU and CUDA activities):
     their level-0 variants: the split of their time between the two
     phases.  Those builds compute wrong results.
 
+--darcy-block NREF times, alone, the kernel of every operator of the
+blocked Darcy GMRES's f64 hierarchy (darcy_lane.lane_darcy_block) with
+its library call and bound.
+
 --darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
 (darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
 memory row): a solve row for the inner f32 PCG (rtol 1e-6, the first
@@ -564,6 +568,27 @@ def _darcy(nx, dev, emit):
                  note="a composite of the rows above and torch ops"))
 
 
+def _darcy_block(nref, dev, emit):
+    """The --darcy-block rows: the kernel of every operator a cycle of
+    the blocked Darcy GMRES's f64 hierarchy (darcy_lane.lane_darcy_block)
+    applies, in the format the path gives it, with its bound."""
+    from parelag_tpu_torch import darcy_lane
+    from parelag_tpu_torch.solvers.hierarchy import level_operators
+    hk.load()
+    _, (H, _) = darcy_lane.lane_darcy_block(nref, dev)
+    rng = np.random.RandomState(5)
+    for label, M in level_operators(H):
+        name = KERNEL_OF.get(type(M))
+        if name is None:
+            continue
+        v = torch.as_tensor(rng.randn(M.shape[1])).to(M.dtype).to(dev)
+        row = _timed_row(name, f"block {label} {M.dtype} "
+                         f"{M.shape[0]}x{M.shape[1]} nnz={_nnz(M)}", M, v)
+        row.update(bound_us=_bound_us(_sparse_bytes(M, v.element_size()),
+                                      2 * _nnz(M)), nnz=_nnz(M))
+        emit(row)
+
+
 def _tune_ell(P0, Hm, dev, slots):
     """The ELL variants with hopper_kernels.ELL_SLOTS set to each S in
     slots; the setting and the plan cache are restored after."""
@@ -626,6 +651,9 @@ def main(argv=None):
     ap.add_argument("--darcy", type=int, default=0,
                     help="profile only the hybridized Darcy multiplier "
                     "solve at this grid (e.g. 64)")
+    ap.add_argument("--darcy-block", type=int, default=0,
+                    help="profile only the kernels of the blocked Darcy "
+                    "GMRES's hierarchy at these refinements (e.g. 3)")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
@@ -643,6 +671,9 @@ def _run(args, emit):
     dev = pick_device()
     if args.darcy:
         _darcy(args.darcy, dev, emit)
+        return
+    if args.darcy_block:
+        _darcy_block(args.darcy_block, dev, emit)
         return
     if args.ablate:
         # a build of its own: the flags are part of the library's hash

@@ -1,13 +1,16 @@
 """Boundary helpers of the upscaling drivers (copies).
 
-The three host helpers of parelag_tpu/models/upscaling.py that the
-generic H1 problem needs (mark_dofs_on_bndr, boundary_rhs,
-eliminate_rowcols), copied with their import lines rewritten; the rest
-of the module (the UpscalingGeneralForm drivers) is not ported yet.
+The host helpers of parelag_tpu/models/upscaling.py that the generic H1
+problem and models/spectral.py need (mark_dofs_on_bndr, boundary_rhs,
+eliminate_rowcols, UpscalingResult, solve_spd), copied with their import
+lines rewritten; the rest of the module (the UpscalingGeneralForm
+programs) is not ported yet.
 """
 
+from dataclasses import dataclass
 import numpy as np
 import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 
 from parelag_tpu_torch.amge.fespace import DeRhamSequenceFE
 from parelag_tpu_torch.amge import hexfe
@@ -112,3 +115,26 @@ def eliminate_rowcols(A, b, marker, values):
     A = A + sp.diags(np.where(marker, diag, 0.0))
     b[idx] = diag[idx] * values[idx]
     return A.tocsr(), b
+
+
+@dataclass
+class UpscalingResult:
+    u_l2_errors: list           # coarse levels, finest-coarse last
+    u_energy_errors: list
+    u_norms: list
+    ndofs: list
+
+    def print_report(self):
+        fmt = lambda xs: " ".join(f"{x:.4e}" for x in xs)
+        print(f"u l2-like errors: {fmt(self.u_l2_errors)} ")
+        print(f"u energy-like errors: {fmt(self.u_energy_errors)} ")
+
+
+def solve_spd(A, b, solver="direct", rtol=1e-6, atol=1e-12, maxiter=500):
+    if solver == "direct":
+        return spla.spsolve(A.tocsc(), b)
+    if solver == "cg":
+        from parelag_tpu_torch.solvers.cg import pcg_host
+        x, _ = pcg_host(A, b, rtol=rtol, atol=atol, maxiter=maxiter)
+        return x
+    raise ValueError(solver)

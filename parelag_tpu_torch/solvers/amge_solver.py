@@ -25,19 +25,17 @@ from parelag_tpu_torch.solvers.hierarchy import build_hierarchy, rap
 
 def build_amge_hierarchy(seqs, form, A_fine, smoother="l1jacobi",
                          sweeps=2, mu=1, dtype=np.float64,
-                         matrix_format="auto", reorder=None,
-                         transfer_dtype=None, device=None):
+                         cheby_degree=3, matrix_format="auto",
+                         reorder=None, transfer_dtype=None, device=None):
     """seqs: list of DeRhamSequence levels (finest first); A_fine: assembled
     + BC-eliminated fine operator. Returns (Hierarchy, A_levels, P_levels)
     with the Hierarchy on `device` (None: the card).
 
-    smoother: 'l1jacobi' | 'hiptmair' (Hiptmair uses the potential-space
-    derivative D[form-1] coarsened per level, the reference
-    HiptmairSmootherFactory pattern); 'chebyshev' and reorder='rcm' are
-    refused until they are ported."""
+    smoother: 'l1jacobi' | 'chebyshev' | 'hiptmair' (Hiptmair uses the
+    potential-space derivative D[form-1] coarsened per level, the
+    reference HiptmairSmootherFactory pattern); reorder='rcm' is refused
+    until it is ported."""
     device = resolve_device(device)
-    if smoother == "chebyshev":
-        raise ValueError(f"smoother {smoother!r} is not ported yet")
     if reorder is not None:
         raise ValueError(f"reorder={reorder!r} is not ported yet")
     n_lev = len(seqs)
@@ -52,6 +50,9 @@ def build_amge_hierarchy(seqs, form, A_fine, smoother="l1jacobi",
         if smoother == "l1jacobi":
             return sm.make_l1_jacobi(sp.csr_matrix(A).astype(dtype),
                                      sweeps=sweeps, device=device)
+        if smoother == "chebyshev":
+            return sm.make_chebyshev(sp.csr_matrix(A).astype(dtype),
+                                     degree=cheby_degree, device=device)
         if smoother == "hiptmair":
             D = seqs[l].D[form - 1]
             return sm.make_hiptmair(A, D, dtype=dtype, device=device)

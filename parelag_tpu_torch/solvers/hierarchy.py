@@ -19,8 +19,7 @@ from torch import nn
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops.device_sparse import (
-    BC, BR, as_torch_dtype, bcsr_stats, dia_n_offsets, from_scipy, to_bcsr,
-    to_dia, to_tilecoo)
+    BC, BR, as_torch_dtype, dia_n_offsets, from_scipy, to_bcsr, to_dia)
 
 
 class Level(nn.Module):
@@ -104,6 +103,19 @@ def _cycle(levels, l, b, x, mu, x_is_zero=False):
     return lvl.post.apply(lvl.A, b, x)
 
 
+def transfer_format(device, matrix_format="auto"):
+    """The format of P and R on `device`: "bcsr" on the card (the
+    bcsr_spmv kernel streams the nonzeros in row order), "ell" on the
+    CPU or when matrix_format asks for it.  The JAX package picks among
+    BCSR, TileCoo and ELL by its 8 x 128 tile counts, because its BCSR
+    pads every row block to the densest one; the port's BcsrMatrix
+    stores no tiles, so that rule has no reason here (on the 64^3 darcy
+    SA chain it made R0 a ~1 GB TileCoo and P0 an ELL matrix)."""
+    if matrix_format == "ell" or torch.device(device).type == "cpu":
+        return "ell"
+    return "bcsr"
+
+
 def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
                     mu=1, dtype=np.float64, matrix_format="auto",
                     transfer_dtype=None, device=None) -> Hierarchy:
@@ -111,29 +123,16 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
 
     A_scipy_levels: [A_0, ..., A_L]; P_scipy_levels: [P_0, ..., P_{L-1}];
     smoother_factory(A_scipy, level) -> smoother module.  The transfer
-    format keys on the target device as the JAX build_hierarchy keys on
-    its backend: ELL on the CPU, BCSR/TileCoo/ELL by structure
-    elsewhere.  device=None builds on the card."""
+    format is transfer_format's: BCSR on the card, ELL on the CPU.
+    device=None builds on the card."""
     device = resolve_device(device)
     on_cpu = device.type == "cpu"
 
     def to_dev_transfer(M):
-        """Device format for P/R: BCSR when its kb-padding stays within
-        4x of the nonempty-tile bytes, TileCoo when padding explodes but
-        the tile count is sane, ELL as the last resort."""
         M = sp.csr_matrix(M)
         tdt = transfer_dtype if transfer_dtype is not None else dtype
-        if matrix_format == "ell" or on_cpu:
-            return from_scipy(M, dtype=tdt, device=device)
-        itemsize = torch.empty((), dtype=as_torch_dtype(tdt)).element_size()
-        nbr, kb, ntiles = bcsr_stats(M)
-        bcsr_b = nbr * kb * 1024 * itemsize
-        coo_b = ntiles * 1024 * itemsize
-        cap = 1.5e9
-        if bcsr_b <= min(max(4 * coo_b, 64e6), cap):
+        if transfer_format(device, matrix_format) == "bcsr":
             return to_bcsr(M, dtype=tdt, device=device)
-        if coo_b <= cap:
-            return to_tilecoo(M, dtype=tdt, device=device)
         return from_scipy(M, dtype=tdt, device=device)
 
     def to_dev(M):

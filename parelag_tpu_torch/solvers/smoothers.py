@@ -6,6 +6,10 @@ Counterpart of parelag_tpu/solvers/smoothers.py; ported so far:
                  variant, reference ParELAG_HypreSmootherFactory.cpp:
                  73-84).  On a DIA operator its sweeps run as fused
                  kernels (DiaMatrix.jacobi_sweeps).
+  * Chebyshev  — degree-k polynomial in D^{-1}A over [ratio * lmax,
+                 lmax], lmax from a seeded host power iteration (hypre's
+                 Chebyshev); its residuals b - A x run the level's SpMV
+                 (dia_spmv on a DIA level).
   * block Jacobi — x += omega * B^{-1} (b - A x) with B^{-1} a
                  BlockDiagInverse (the facet blocks of the hybridized
                  multiplier system, amge/hybridization.py).
@@ -72,6 +76,66 @@ def make_l1_jacobi(A_scipy, sweeps=1, omega=1.0,
     d = np.where(d > 0, d, 1.0)
     return L1JacobiSmoother(
         torch.as_tensor(1.0 / d).to(resolve_device(device)), sweeps, omega)
+
+
+class ChebyshevSmoother(nn.Module):
+    """Chebyshev over [lmin, lmax] of D^{-1}A (hypre-style); coeffs =
+    (lmin, lmax, degree), host floats.  dinv is a buffer, so
+    Hierarchy.cast casts it as it casts l1-Jacobi's weights."""
+
+    def __init__(self, dinv, coeffs):
+        super().__init__()
+        self.register_buffer("dinv", dinv)
+        self.coeffs = tuple(coeffs)
+
+    def apply(self, A, b, x):
+        """x is cast to b's dtype first, as DiaMatrix.jacobi_sweeps casts
+        it (a bf16 cycle's correction P @ e arrives in f32, and the DIA
+        kernels take one dtype)."""
+        lmin, lmax, degree = self.coeffs
+        x = x.to(b.dtype)
+        dinv = self.dinv if b.ndim == 1 else self.dinv[:, None]
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        r = dinv * (b - A @ x)
+        d = r / theta
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            x = x + d
+            r = dinv * (b - A @ x)
+            d = rho_new * rho * d + 2.0 * rho_new / delta * r
+            rho = rho_new
+        return x + d
+
+
+def estimate_lmax(A_scipy, dinv, iters=20, seed=0):
+    """Power iteration for lambda_max(D^{-1} A) on the host, from
+    RandomState(seed).rand."""
+    rng = np.random.RandomState(seed)
+    n = A_scipy.shape[0]
+    x = rng.rand(n)
+    A = sp.csr_matrix(A_scipy)
+    lam = 1.0
+    for _ in range(iters):
+        y = dinv * (A @ x)
+        lam = np.linalg.norm(y)
+        if lam == 0:
+            return 1.0
+        x = y / lam
+    return float(lam)
+
+
+def make_chebyshev(A_scipy, degree=3, ratio=0.3,
+                   device=None) -> ChebyshevSmoother:
+    d = sp.csr_matrix(A_scipy).diagonal()
+    d = np.where(d > 0, d, 1.0)
+    dinv = 1.0 / d
+    lmax = 1.1 * estimate_lmax(A_scipy, dinv)
+    return ChebyshevSmoother(
+        torch.as_tensor(dinv).to(resolve_device(device)),
+        (ratio * lmax, lmax, degree))
 
 
 class BlockJacobiSmoother(nn.Module):

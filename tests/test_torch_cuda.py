@@ -577,3 +577,89 @@ def test_darcy_block_gmres_on_card(card):
     rc, _ = darcy_lane.lane_darcy_block(1, "cpu")
     assert rg["cycles"] == rc["cycles"] and rg["err_vs_direct"] < 1e-8
     assert rg["kernels"]["ell_spmv"] > 0, rg["kernels"]
+
+
+@pytest.mark.cuda
+def test_chebyshev_bf16_dia_level_on_card(card):
+    """A Chebyshev smoother (degree 3) on a bf16 DIA level, as the
+    flagship's bf16 preconditioner applies it: the card (dia_spmv
+    launched for every residual) against the same bf16 tensors on the
+    CPU (plain versions)."""
+    from parelag_tpu_torch.solvers.smoothers import make_chebyshev
+    n = 40
+    T = sp.diags([4 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)],
+                 [0, 1, -1])
+    I = sp.identity(n)
+    A = (sp.kron(sp.kron(T, T), I) + sp.kron(sp.kron(I, T), T)
+         + sp.kron(sp.kron(T, I), T)).tocsr().astype(np.float32)
+    rng = np.random.RandomState(0)
+    b = torch.as_tensor(rng.randn(A.shape[0]).astype(np.float32))
+    ys = []
+    for dev in ("cpu", card):
+        S = make_chebyshev(A, degree=3, device=dev).to(torch.bfloat16)
+        D = to_dia(A, torch.bfloat16, dev)
+        bb = b.to(torch.bfloat16).to(dev)
+        before = dict(hk.LAUNCHES)
+        ys.append(S.apply(D, bb, torch.zeros_like(bb)))
+        launched = hk.LAUNCHES["dia_spmv"] - before["dia_spmv"]
+    torch.cuda.synchronize()
+    assert launched == 3
+    assert ys[1].dtype == torch.bfloat16
+    assert _rel(ys[1].cpu(), ys[0]) <= LIMIT[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_tune_cycle_on_card(card):
+    """tune_cycle on the 16^3 structured hierarchy with the bf16
+    preconditioner: every row's iterations within one of, and its
+    converged flag equal to, the same call on the CPU."""
+    from parelag_tpu_torch import flagship
+    from parelag_tpu_torch.solvers.autotune import tune_cycle
+    A, P, b = flagship.build_h1_structured(16, 64, device="cpu")
+    kw = dict(rtol=1e-5, dtype=np.float32, matrix_format="dia",
+              precond_dtype=torch.bfloat16, repeats=1)
+    bg, tg = tune_cycle(A, P, b, device=card, **kw)
+    _, tc = tune_cycle(A, P, b, device="cpu", **kw)
+    for rg, rc in zip(tg, tc):
+        assert abs(rg["iters"] - rc["iters"]) <= 1, (rg, rc)
+        assert rg["converged"] == rc["converged"]
+    assert bg is not None
+    assert bg["hierarchy"].levels[0].A.data.is_cuda
+
+
+@pytest.mark.cuda
+def test_spectral_coarsen_darcy_on_card(card):
+    """The structured spectral engine at (12, 12, 6) on the SPE10-like
+    field in f64 on the card against the port on the CPU: per-entity
+    counts exact, the upscaling error within 1e-8 relative, the spot
+    oracle within 1e-8."""
+    from parelag_tpu_torch import spectral_lane
+    from parelag_tpu_torch.amge.structured_spectral import (
+        spectral_coarsen_darcy)
+    cells = (12, 12, 6)
+    field, coeff = spectral_lane.spe10_coeff(cells)
+    f = spectral_lane._pick_factors(cells)
+    outs = [spectral_coarsen_darcy(cells, f, coeff, h=field.sizes,
+                                   device=d) for d in ("cpu", card)]
+    for k in ("n_facet_dofs", "n_ae_u_dofs", "n_ae_p_dofs"):
+        assert np.array_equal(getattr(outs[0], k), getattr(outs[1], k)), k
+    fine = spectral_lane.fine_darcy(cells, coeff, field.sizes)
+    ec, eg = (spectral_lane.upscaling_error(fine, o.P2, o.P3)
+              for o in outs)
+    assert abs(eg - ec) <= 1e-8 * ec, (eg, ec)
+    assert outs[1].ext_spot_err < 1e-8 and outs[1].ns_res < 1e-10
+
+
+@pytest.mark.cuda
+def test_darcy_sa_chain_on_card_has_bcsr_transfers(card):
+    """The darcy SA chain built on the card: every transfer a
+    BcsrMatrix (transfer_format), no TileCooMatrix on any level."""
+    from parelag_tpu_torch import darcy_lane
+    from parelag_tpu_torch.ops.device_sparse import BcsrMatrix
+    hyb, H, g = darcy_lane.build_darcy_hyb(16)
+    _, _, Hier, _, _, _ = hyb._device_setup(H, device=card)
+    mats = [m for l in Hier.levels for m in (l.A, l.P, l.R)
+            if m is not None]
+    assert not any(type(m).__name__ == "TileCooMatrix" for m in mats)
+    assert all(isinstance(l.P, BcsrMatrix) and isinstance(l.R, BcsrMatrix)
+               for l in Hier.levels if l.P is not None)

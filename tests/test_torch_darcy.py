@@ -596,14 +596,17 @@ SPE10_EDITS = [
     ('    solver info."""',
      '    solver info. device: where the "device" and "auto" multiplier\n'
      '    solvers run (HybridHdivL2.solve; None: the card); device_solves\n'
-     '    holds each level\'s HybridHdivL2.last_device (None where no '
-     'device\n    solve ran)."""'),
+     '    holds each level\'s HybridHdivL2.last_device and '
+     'device_hierarchies\n    its last_hierarchy (None where no device '
+     'solve ran)."""'),
     ('rtol=1e-8, rescale=True)',
      'rtol=1e-8, rescale=True, device=device)'),
     ('            out["iters"].append(hyb.n_mult)\n',
      '            out["iters"].append(hyb.n_mult)\n'
      '            out.setdefault("device_solves", []).append(\n'
-     '                getattr(hyb, "last_device", None))\n'),
+     '                getattr(hyb, "last_device", None))\n'
+     '            out.setdefault("device_hierarchies", []).append(\n'
+     '                getattr(hyb, "last_hierarchy", None))\n'),
 ]
 
 

@@ -94,8 +94,10 @@ def _entry_points():
     one, on tiny inputs (name -> thunk)."""
     import scipy.sparse as sp
     from parelag_tpu_torch import (
-        convert, darcy_lane, entry, flagship, generic_lane, maxwell_lane)
-    from parelag_tpu_torch.amge import spectral, structured
+        convert, darcy_lane, entry, flagship, generic_lane, maxwell_lane,
+        spectral_lane)
+    from parelag_tpu_torch.amge import (
+        spectral, structured, structured_spectral, structured_spectral_ml)
     from parelag_tpu_torch.amge.hybridization import HybridHdivL2
     from parelag_tpu_torch.ops import batched, device_sparse as ds
     from parelag_tpu_torch.solvers import (
@@ -163,6 +165,23 @@ def _entry_points():
         "darcy_lane.lane_spe10": lambda: darcy_lane.lane_spe10((2, 2, 2)),
         "darcy_lane.lane_darcy_block":
             lambda: darcy_lane.lane_darcy_block(1),
+        "smoothers.make_chebyshev": lambda: smoothers.make_chebyshev(I),
+        "autotune.tune_cycle":
+            lambda: autotune.tune_cycle([I], [], np.ones(8)),
+        "flagship.lane_autotune": lambda: flagship.lane_autotune(4),
+        "structured_spectral.spectral_coarsen_darcy":
+            lambda: structured_spectral.spectral_coarsen_darcy(
+                (2, 2, 2), (2, 2, 2), np.ones(8)),
+        "structured_spectral_ml.fine_block_level":
+            lambda: structured_spectral_ml.fine_block_level(
+                (2, 2, 2), np.ones(8)),
+        "structured_spectral_ml.spectral_coarsen_darcy_chain":
+            lambda: structured_spectral_ml.spectral_coarsen_darcy_chain(
+                (2, 2, 2), [(2, 2, 2)], np.ones(8)),
+        "spectral_lane.lane_spe10_structured":
+            lambda: spectral_lane.lane_spe10_structured((2, 2, 2)),
+        "spectral_lane.lane_spe10_ml":
+            lambda: spectral_lane.lane_spe10_ml((2, 2, 2)),
     }
 
 

@@ -151,7 +151,7 @@ def test_smoother_matches_jax(chain, fmt):
 
 def test_transfer_format_keys_on_device(chain):
     """CPU tensors get ELL transfers (as JAX on its CPU backend); any
-    other device gets the BCSR/TileCoo choice from bcsr_stats.  The
+    other device gets BCSR (hierarchy.transfer_format).  The
     'meta' device stands in for the card here: it allocates nothing."""
     A_levels, P_levels = chain
     Hc = th.build_hierarchy(A_levels, P_levels, tfactory(CFG, "cpu"),
@@ -177,5 +177,5 @@ def test_coarse_guard_and_rap():
     A = (A + A.T).tocsr()
     P = sp.random(60, 20, density=0.1, random_state=rng, format="csr")
     assert abs(th.rap(A, P) - jh.rap(A, P)).max() == 0.0
-    with pytest.raises(ValueError, match="not ported"):
-        tfactory(dict(smoother="chebyshev"))
+    with pytest.raises(ValueError, match="gauss_seidel"):
+        tfactory(dict(smoother="gauss_seidel"))
