@@ -4,6 +4,7 @@
                                 # (1 and 16 RHS, then its winner), 24^3
                                 # Maxwell, the generic engine, entry(),
                                 # the hybridized Darcy lanes, the
+                                # XML solver library at 64^3, the
                                 # structured spectral SPE10 lanes
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
@@ -52,6 +53,18 @@
       the same lane on this machine's CPU (see check_spe10);
    f. the blocked Darcy AMGe GMRES, darcy_lane.lane_darcy_block
       (BLOCK_NREF): f64 ELL levels, within 1e-8 of a direct solve;
+   f2. the XML solver library, library_lane.lane_library(LIB_NREF): the
+      example chain at 64^3 (6 levels, pass 2 on the card) and the
+      compositions PCG + AMGe (L1 Gauss-Seidel), PCG + AMS and PCG + ADS
+      on it, GMRES + blocked AMGe and Hybridization + CG_PCG-AMG on the
+      32^3 Darcy chain, all f64 through solvers/library.SolverLibrary:
+      every composition executed on the device (no host fallback), a
+      true relative residual <= LIB_RES_LIMIT, each scalar
+      composition's iterations within max(2 n_16, n_16 + 15) of the
+      same lane at 16^3 on the card (which must agree with the CPU:
+      iterations within one, x within LIB_X_LIMIT), and
+      multigrid_test_form(form, nref=2) on the card gives the JAX
+      package's 4 / 7 / 9 iterations;
    g. the structured spectral SPE10 setup,
       spectral_lane.lane_spe10_structured(SPS_CELLS) in f64 on the card:
       the same lane on this machine's CPU gives the same dims and
@@ -85,7 +98,10 @@
    _compare); format_bytes is what the kernel's own format streams,
    padding included.
    The SPE10 rows include every level's SA hierarchy of the generic
-   SPE10 lane (e), BCSR transfers included.
+   SPE10 lane (e), BCSR transfers included; the library rows are f64
+   (library_lane.kernel_operators: every operator of the form-0 AMGe
+   hierarchy, BCSR transfers included, and the form-1 Hiptmair D0,
+   A_aux0 and Krylov A0 in ELL), held at 1e-12.
 4. Prints each phase's seconds, {"kernels": [...]} and, last,
    {"ok": true, "device": {...}}.
 
@@ -106,8 +122,9 @@ import torch
 
 from parelag_tpu_torch import (
     darcy_lane, device as pick_device, entry, flagship, generic_lane,
-    kernel_profile, maxwell_lane, spectral_lane)
+    kernel_profile, library_lane, maxwell_lane, spectral_lane)
 from parelag_tpu_torch.amge import structured_spectral as sps
+from parelag_tpu_torch.models.multigrid import multigrid_test_form
 from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
 from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
 from parelag_tpu_torch.ops.device_sparse import (
@@ -150,8 +167,16 @@ ML_CELLS = spectral_lane.ML_CELLS        # (32, 32, 16)
 SPS_U_L2_LIMIT, ML_U_L2_LIMIT, SPOT_LIMIT = 1e-8, 1e-6, 1e-8
 BATCHES, PER_BATCH = 5, 20   # timed batches of back-to-back launches
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
-# FP32 FLOP/s outside the tensor cores (the kernels' f32 FMAs)
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# FP32 FLOP/s outside the tensor cores (the kernels' f32 FMAs); FP64
+# FLOP/s outside the tensor cores for the f64 rows
+PEAK_BYTES, PEAK_FLOPS, PEAK_FLOPS_F64 = 3.35e12, 67e12, 34e12
+LIB_NREF = library_lane.LIB_NREF        # 64^3 cells, 6 levels
+LIB_SMALL_NREF = 3                      # card against CPU: 16^3 cells
+LIB_RES_LIMIT = 1e-6    # true f64 relative residual at rtol 1e-8
+LIB_X_LIMIT = 1e-8      # card against CPU: x relative
+# multigrid_test_form(form, nref=2): the JAX package's golden PCG
+# iterations (tests/test_solvers.py)
+MG_GOLDEN_ITERS = {0: 4, 1: 7, 2: 9}
 
 # name -> (source, the TPU kernel it replaces (file:line), main path)
 SOURCES = {
@@ -244,7 +269,8 @@ def _compare(name, variant, kernel, plain, nbytes, flops, format_bytes,
     ref = yp.double().abs().max().item()
     rel = d / max(ref, 1e-300)
     limit = REL_LIMIT[yk.dtype]
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    peak = PEAK_FLOPS_F64 if yk.dtype == torch.float64 else PEAK_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     row = dict(variant=variant, max_abs_err=d, max_rel_err=rel,
                limit=limit, ms=_ms(kernel), plain_ms=_ms(plain),
                bound_ms=max(t_bytes, t_ops),
@@ -410,12 +436,13 @@ def _darcy_dia_rows(rows, Hd, dev, rng):
         lambda: csr @ x))
 
 
-def _op_rows(rows, path, H, dev, rng):
-    """bcsr_spmv / ell_spmv on every operator a cycle of the path's
-    hierarchy H applies (hierarchy.level_operators), each the path's own
-    tensors on the card in the format the path gave it; a format with no
-    hand kernel (TileCoo: torch ops) has no row."""
-    for label, M in level_operators(H):
+def _op_rows(rows, path, mats, dev, rng):
+    """bcsr_spmv / ell_spmv on each (label, operator) of a path (e.g.
+    every operator a cycle of its hierarchy applies,
+    hierarchy.level_operators), each the path's own tensors on the card
+    in the format the path gave it; a format with no hand kernel
+    (TileCoo: torch ops) has no row."""
+    for label, M in mats:
         name = kernel_profile.KERNEL_OF.get(type(M))
         if name is None:
             continue
@@ -442,7 +469,7 @@ def _op_rows(rows, path, H, dev, rng):
         del csr
 
 
-def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, dev):
+def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, dev):
     """Each kernel against its plain version at the main paths' shapes,
     on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
@@ -455,7 +482,8 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, dev):
     path gave it (_op_rows): ELL on the generic A0, the SA A0, A1 and P0
     and every block level, BCSR on the rest, whose uneven rows (~100-600
     nonzeros on the SA coarse levels) reach the kernels' tail
-    handling."""
+    handling.  library: the library lane's f64 operators
+    (library_lane.kernel_operators)."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
@@ -476,11 +504,12 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, dev):
                      ("Maxwell D0", D0[0]),
                      ("Maxwell D0^T", D0[0].T.tocsr()),
                      ("flagship P0", P0)], dev, rng)
-    _op_rows(rows, "generic", generic, dev, rng)
-    _op_rows(rows, "darcy SA", H_sa, dev, rng)
-    _op_rows(rows, "darcy block", H_block, dev, rng)
+    _op_rows(rows, "generic", level_operators(generic), dev, rng)
+    _op_rows(rows, "darcy SA", level_operators(H_sa), dev, rng)
+    _op_rows(rows, "darcy block", level_operators(H_block), dev, rng)
     for l, H in enumerate(spe10):
-        _op_rows(rows, f"spe10 L{l} SA", H, dev, rng)
+        _op_rows(rows, f"spe10 L{l} SA", level_operators(H), dev, rng)
+    _op_rows(rows, "library", library, dev, rng)
     return rows
 
 
@@ -901,6 +930,75 @@ def small_check_darcy(dev):
         raise SystemExit("FAIL small check spe10: card and CPU disagree")
 
 
+def _print_library(rec):
+    for name, c in rec["compositions"].items():
+        print(f"  {name} (form {c['form']}, n={c['n']}): executed_on "
+              f"{c['executed_on']} iters {c['iters']} rel_res "
+              f"{c['rel_res']:.3e} setup_s {c['setup_s']:.3f} solve_s "
+              f"{c['solve_s']:.5f} formats {c['formats']} transfers "
+              f"{c['transfers']} kernels {c['kernels']}")
+
+
+def small_check_library(dev):
+    """The library lane with both chains at LIB_SMALL_NREF (16^3 cells)
+    on the card against the same lane on the CPU: every composition on
+    the device on both, iterations within one, x within LIB_X_LIMIT
+    relative; then multigrid_test_form(form, nref=2) on the card gives
+    the JAX package's golden iterations.  Returns the card's iterations
+    by composition (n_16 of the level-independence bound)."""
+    (rg, _, sg), (rc, _, sc) = (
+        library_lane.lane_library(LIB_SMALL_NREF, d, LIB_SMALL_NREF)
+        for d in (dev, torch.device("cpu")))
+    fails = []
+    for name, cg in rg["compositions"].items():
+        cc = rc["compositions"][name]
+        dx = _rel(sg[name][1], sc[name][1])
+        print(f"  small check library 16^3 {name}: iters card {cg['iters']}"
+              f" cpu {cc['iters']}, executed_on {cg['executed_on']} / "
+              f"{cc['executed_on']}, rel_res card {cg['rel_res']:.3e}, "
+              f"|dx|/|x| {dx:.3e} (limit {LIB_X_LIMIT:g})")
+        if not (cg["executed_on"] == cc["executed_on"] == "device"
+                and abs(cg["iters"] - cc["iters"]) <= 1
+                and dx <= LIB_X_LIMIT):
+            fails.append(name)
+    for form, gold in MG_GOLDEN_ITERS.items():
+        r = multigrid_test_form(form, nref=2, device=dev)
+        print(f"  multigrid_test_form({form}, nref=2) on the card: iters "
+              f"{r.iterations} (golden {gold}) conv {r.conv_factor:.4f} "
+              f"final_residual {r.final_residual:.3e}")
+        if r.iterations != gold:
+            fails.append(f"multigrid form {form}")
+    if fails:
+        raise SystemExit("FAIL small check library: " + "; ".join(fails))
+    return {k: c["iters"] for k, c in rg["compositions"].items()}
+
+
+def check_library(rec, launches, n16):
+    """Every composition ran on the device with a true f64 relative
+    residual <= LIB_RES_LIMIT; each scalar composition's iterations stay
+    within max(2 n_16, n_16 + 15) of its 16^3 count (the JAX package's
+    level-independence bound, tests/test_device_library.py); bcsr_spmv
+    and ell_spmv launched."""
+    fails = []
+    for name, c in rec["compositions"].items():
+        if c["executed_on"] != "device":
+            fails.append(f"{name} ran on {c['executed_on']}")
+        if not c["rel_res"] <= LIB_RES_LIMIT:
+            fails.append(f"{name} rel_res {c['rel_res']:.3e}")
+        if name in library_lane.SCALAR:
+            n = n16[name]
+            limit = max(2 * n, n + 15)
+            print(f"  {name}: iters {c['iters']} at nref {rec['nref']}, "
+                  f"{n} at 16^3 (limit {limit})")
+            if c["iters"] > limit:
+                fails.append(f"{name} iters {c['iters']} > {limit}")
+    for k in ("bcsr_spmv", "ell_spmv"):
+        if launches[k] <= 0:
+            fails.append(f"{k} not launched")
+    if fails:
+        raise SystemExit("FAIL library path: " + "; ".join(fails))
+
+
 def check_entry(dev):
     """entry.entry() on the card against the same call on the CPU."""
     fn, args = entry.entry()
@@ -1082,6 +1180,21 @@ def main():
     phase("darcy_block", t0)
 
     t0 = time.perf_counter()
+    print(f"main path library (library_lane.lane_library({LIB_NREF}), "
+          "f64):")
+    (librec, lib_solvers, _), l_lib = _path(
+        "library", lambda: library_lane.lane_library(LIB_NREF, dev))
+    print("  record: " + json.dumps(librec))
+    print(f"  chain_s {librec['chain_s']:.2f} dims {librec['dims']} darcy "
+          f"chain_s {librec['darcy_chain_s']:.2f}")
+    _print_library(librec)
+    lib_n16 = small_check_library(dev)
+    check_library(librec, l_lib, lib_n16)
+    lib_ops = library_lane.kernel_operators(lib_solvers)
+    del lib_solvers
+    phase("library", t0)
+
+    t0 = time.perf_counter()
     print(f"main path spe10_structured (spectral_lane."
           f"lane_spe10_structured({SPS_CELLS}), f64):")
     field, coeff = spectral_lane.spe10_coeff(SPS_CELLS)
@@ -1144,7 +1257,8 @@ def main():
     t0 = time.perf_counter()
     print("kernel phase (kernel vs plain on the card):")
     rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
-                        (darcy_Hd, darcy_H, block_H), spe10_H, dev)
+                        (darcy_Hd, darcy_H, block_H), spe10_H, lib_ops,
+                        dev)
     phase("kernels", t0)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
@@ -1154,7 +1268,7 @@ def main():
                    "h1_autotuned": l_h1t[name],
                    "maxwell": l_mx[name], "generic": l_gen[name],
                    "darcy_hyb": l_dh[name], "spe10": l_sp[name],
-                   "darcy_block": l_bk[name],
+                   "darcy_block": l_bk[name], "library": l_lib[name],
                    "spe10_structured": l_sx[name],
                    "spe10_full": l_sf[name], "spe10_ml": l_ml[name]}
         kernels.append(dict(
@@ -1167,6 +1281,8 @@ def main():
                             if v["variant"].startswith("darcy")],
             spe10_variants=[v["variant"] for v in r
                             if v["variant"].startswith("spe10")],
+            library_variants=[v["variant"] for v in r
+                              if v["variant"].startswith("library")],
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
             ms=head["ms"], plain_ms=head["plain_ms"],

@@ -41,3 +41,22 @@ def synchronize(dev):
     """Wait for the work queued on `dev` (a no-op on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+# the XML solver library, loaded at first use (as the JAX package's
+# lazy exports) so that importing the package stays light
+_LAZY = {
+    "SolverLibrary": ("parelag_tpu_torch.solvers.library", "SolverLibrary"),
+    "SolverState": ("parelag_tpu_torch.solvers.library", "SolverState"),
+    "ParameterList": ("parelag_tpu_torch.utils.params", "ParameterList"),
+    "read_xml": ("parelag_tpu_torch.utils.params", "read_xml"),
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    import importlib
+    mod, attr = _LAZY[name]
+    return getattr(importlib.import_module(mod), attr)

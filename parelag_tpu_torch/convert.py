@@ -18,7 +18,8 @@ from parelag_tpu_torch.ops.device_sparse import (
 from parelag_tpu_torch.solvers.block import BlockSaddleSmoother
 from parelag_tpu_torch.solvers.hierarchy import Hierarchy, Level
 from parelag_tpu_torch.solvers.smoothers import (
-    BlockJacobiSmoother, HiptmairSmoother, L1JacobiSmoother)
+    BlockJacobiSmoother, ChebyshevSmoother, HiptmairSmoother,
+    L1JacobiSmoother)
 
 
 def _tensor(a, device):
@@ -70,6 +71,10 @@ def _smoother(S, device):
     name = type(S).__name__
     if name == "L1JacobiSmoother":
         return L1JacobiSmoother(_tensor(S.dinv, device), S.sweeps, S.omega)
+    if name == "ChebyshevSmoother":
+        return ChebyshevSmoother(_tensor(S.dinv, device),
+                                 tuple(float(c) for c in S.coeffs[:2])
+                                 + (int(S.coeffs[2]),))
     if name == "BlockJacobiSmoother":
         return BlockJacobiSmoother(_matrix(S.binv, device), S.sweeps,
                                    S.omega)
@@ -94,7 +99,10 @@ def matrix_from_numpy(M, device=None):
 
 def hierarchy_from_numpy(H, device=None) -> Hierarchy:
     """The port's Hierarchy for a JAX Hierarchy with numpy leaves
-    (device=None: on the card)."""
+    (device=None: on the card): the flagship's and the generic engine's,
+    the SA and blocked Darcy hierarchies, and those a JAX library solver
+    built (solvers/library.py: _AMGeSolver._H and _AuxAMGSolver._H, with
+    l1-Jacobi, Chebyshev or Hiptmair smoothers)."""
     device = resolve_device(device)
     if getattr(H, "perm", None) is not None:
         raise TypeError("reordered (RCM) hierarchies are not ported")

@@ -8,6 +8,8 @@
     python -m parelag_tpu_torch.kernel_profile --ablate fill
     python -m parelag_tpu_torch.kernel_profile --ell-slots 1,2,4
     python -m parelag_tpu_torch.kernel_profile --darcy 64
+    python -m parelag_tpu_torch.kernel_profile --library 5
+    python -m parelag_tpu_torch.kernel_profile --spe10 30,55,21
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -62,6 +64,18 @@ torch.profiler (CPU and CUDA activities):
 blocked Darcy GMRES's f64 hierarchy (darcy_lane.lane_darcy_block) with
 its library call and bound.
 
+--library NREF profiles the XML solver library's scalar compositions on
+the example chain at NREF refinements (library_lane.lane_library without
+the Darcy chain): a solve row for each composition's solve() (f64, its
+host plane included) and a kernel row, with bound_us, for each f64
+operator of library_lane.kernel_operators (BCSR A0, P0, R0 of the form-0
+AMGe hierarchy; ELL Hiptmair D0 and A_aux0 and the Krylov A0 of PCG +
+AMS).
+
+--spe10 NX,NY,NZ times the kernel of every operator of every level's f32
+SA hierarchy of the generic SPE10 lane (darcy_lane.lane_spe10), with its
+library call and bound.
+
 --darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
 (darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
 memory row): a solve row for the inner f32 PCG (rtol 1e-6, the first
@@ -106,6 +120,7 @@ REPS, LAUNCHES, N_RHS = 3, 20, 16
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device-memory bytes/s and
 # FP32 FLOP/s outside the tensor cores, as chip_smoke.py's
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+PEAK_FLOPS_F64 = 34e12      # FP64 outside the tensor cores (data sheet)
 HOST_CALLS = 200            # enqueues timed for host_us_per_call
 MIXED_NOTE = "torch's CSR product takes one dtype for the matrix and x"
 # --ablate: the phase the staged multi-RHS DIA kernels leave out, as
@@ -225,7 +240,8 @@ def _solve_row(name, fn):
 def _library_csr(M):
     """torch.sparse_csr_tensor of a BcsrMatrix, EllMatrix or DiaMatrix
     on its device (int64 indices, as the smoke's library operand; the
-    nonzeros sorted through an f32 COO tensor, values in M's dtype)."""
+    nonzeros sorted through a COO tensor, in f32 for bf16 values, values
+    in M's dtype)."""
     if isinstance(M, BcsrMatrix):
         return torch.sparse_csr_tensor(M.row_ptr.long(), M.col_idx.long(),
                                        M.values, M.shape)
@@ -243,8 +259,10 @@ def _library_csr(M):
         inside = (j >= 0) & (j < m)
         rows, cols, vals = rows[inside], j[inside], vals[inside]
     keep = vals != 0
+    vals = vals[keep]
     csr = torch.sparse_coo_tensor(
-        torch.stack([rows[keep], cols[keep]]), vals[keep].float(),
+        torch.stack([rows[keep], cols[keep]]),
+        vals.float() if vals.dtype == torch.bfloat16 else vals,
         M.shape).coalesce().to_sparse_csr()
     return torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
                                    csr.values().to(M.dtype), M.shape)
@@ -453,8 +471,8 @@ def _ell_cases(P0, Hm, dev):
             for label, M in mats]
 
 
-def _bound_us(nbytes, flops):
-    return max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS) * 1e6
+def _bound_us(nbytes, flops, peak_flops=PEAK_FLOPS):
+    return max(nbytes / PEAK_BYTES, flops / peak_flops) * 1e6
 
 
 def _nnz(M):
@@ -576,17 +594,62 @@ def _darcy_block(nref, dev, emit):
     from parelag_tpu_torch.solvers.hierarchy import level_operators
     hk.load()
     _, (H, _) = darcy_lane.lane_darcy_block(nref, dev)
-    rng = np.random.RandomState(5)
-    for label, M in level_operators(H):
+    for row in _operator_rows("block", level_operators(H), dev,
+                              np.random.RandomState(5)):
+        emit(row)
+
+
+def _operator_rows(path, mats, dev, rng):
+    """Kernel rows (device us per launch, library device us, bound_us)
+    of bcsr_spmv / ell_spmv on each (label, operator) of a path, in the
+    format and dtype the path gave it."""
+    rows = []
+    for label, M in mats:
         name = KERNEL_OF.get(type(M))
         if name is None:
             continue
         v = torch.as_tensor(rng.randn(M.shape[1])).to(M.dtype).to(dev)
-        row = _timed_row(name, f"block {label} {M.dtype} "
+        row = _timed_row(name, f"{path} {label} {M.dtype} "
                          f"{M.shape[0]}x{M.shape[1]} nnz={_nnz(M)}", M, v)
-        row.update(bound_us=_bound_us(_sparse_bytes(M, v.element_size()),
-                                      2 * _nnz(M)), nnz=_nnz(M))
+        row.update(bound_us=_bound_us(
+            _sparse_bytes(M, v.element_size()), 2 * _nnz(M),
+            PEAK_FLOPS_F64 if M.dtype == torch.float64 else PEAK_FLOPS),
+            nnz=_nnz(M))
+        rows.append(row)
+    return rows
+
+
+def _library(nref, dev, emit):
+    """The --library rows (see the module docstring)."""
+    from parelag_tpu_torch import library_lane
+    hk.load()
+    rec, solvers, solves = library_lane.lane_library(nref, dev,
+                                                     darcy_nref=0)
+    emit(dict(library={k: v for k, v in rec.items()
+                       if k != "compositions"}))
+    for name, c in rec["compositions"].items():
+        emit(dict(composition=name, **c))
+        b = solves[name][0]
+        emit(_solve_row(f"library {name} nref {nref} (n={c['n']}, f64)",
+                        lambda s=solvers[name], b=b: s.solve(b)))
+    for row in _operator_rows("library",
+                              library_lane.kernel_operators(solvers), dev,
+                              np.random.RandomState(6)):
         emit(row)
+
+
+def _spe10(cells, dev, emit):
+    """The --spe10 rows (see the module docstring)."""
+    from parelag_tpu_torch import darcy_lane
+    from parelag_tpu_torch.solvers.hierarchy import level_operators
+    hk.load()
+    _, out = darcy_lane.lane_spe10(cells, dev)
+    rng = np.random.RandomState(7)
+    for l, H in enumerate(out["device_hierarchies"]):
+        if H is not None:
+            for row in _operator_rows(f"spe10 L{l} SA", level_operators(H),
+                                      dev, rng):
+                emit(row)
 
 
 def _tune_ell(P0, Hm, dev, slots):
@@ -654,6 +717,12 @@ def main(argv=None):
     ap.add_argument("--darcy-block", type=int, default=0,
                     help="profile only the kernels of the blocked Darcy "
                     "GMRES's hierarchy at these refinements (e.g. 3)")
+    ap.add_argument("--library", type=int, default=0,
+                    help="profile only the XML solver library's scalar "
+                    "compositions at these refinements (e.g. 5)")
+    ap.add_argument("--spe10", default=None,
+                    help="profile only the kernels of the generic SPE10 "
+                    "lane's SA hierarchies at these cells (e.g. 30,55,21)")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
@@ -674,6 +743,12 @@ def _run(args, emit):
         return
     if args.darcy_block:
         _darcy_block(args.darcy_block, dev, emit)
+        return
+    if args.library:
+        _library(args.library, dev, emit)
+        return
+    if args.spe10:
+        _spe10(tuple(int(c) for c in args.spe10.split(",")), dev, emit)
         return
     if args.ablate:
         # a build of its own: the flags are part of the library's hash

@@ -663,3 +663,48 @@ def test_darcy_sa_chain_on_card_has_bcsr_transfers(card):
     assert not any(type(m).__name__ == "TileCooMatrix" for m in mats)
     assert all(isinstance(l.P, BcsrMatrix) and isinstance(l.R, BcsrMatrix)
                for l in Hier.levels if l.P is not None)
+
+
+@pytest.mark.cuda
+def test_library_pcg_ams_on_card(card):
+    """PCG + AMS through the XML solver library at nref 2 on the card:
+    the Krylov loop runs on the device (executed_on), its f64 hierarchy
+    is BCSR with Hiptmair's ELL operators, the true residual meets the
+    rtol's reach, and iterations and x match the CPU run."""
+    from parelag_tpu_torch.library_lane import (
+        SCALAR, build_chain, run_composition, scalar_problem)
+    from parelag_tpu_torch.ops.device_sparse import BcsrMatrix, EllMatrix
+    from parelag_tpu_torch.solvers.library import SolverState
+    form, entries, entry = SCALAR["PCG-AMS"]
+    out = []
+    for d in (card, torch.device("cpu")):
+        _, seqs, _ = build_chain(2, d)
+        A, b = scalar_problem(seqs, form)
+        out.append(run_composition(entries, entry, A, A, b,
+                                   SolverState(seqs, [form], device=d)))
+    (rg, sg, xg), (rc, _, xc) = out
+    assert rg["executed_on"] == "device" and rg["rel_res"] <= 1e-6
+    l0 = sg._prec._H.levels[0]
+    assert isinstance(l0.A, BcsrMatrix) and l0.A.values.is_cuda
+    assert l0.A.values.dtype == torch.float64
+    assert isinstance(l0.pre.D, EllMatrix)
+    assert rg["kernels"]["bcsr_spmv"] > 0 and rg["kernels"]["ell_spmv"] > 0
+    assert abs(rg["iters"] - rc["iters"]) <= 1
+    assert np.abs(xg - xc).max() <= 1e-8 * np.abs(xc).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1000, 3), (4096, 27), (333, 90)])
+def test_bcsr_spmv_f64_matches_plain(card, n, k):
+    """bcsr_spmv in f64 (the library's hierarchies) against its plain
+    version within 1e-12, on rows of ~k nonzeros (every group width)."""
+    rng = np.random.RandomState(n)
+    M = sp.random(n, n, density=k / n, random_state=rng, format="csr")
+    B = to_bcsr(M, torch.float64, device=card)
+    x = torch.as_tensor(rng.randn(n)).to(card)
+    before = hk.LAUNCHES["bcsr_spmv"]
+    yk = hk.bcsr_spmv(B.row_ptr, B.col_idx, B.values, x, n)
+    assert hk.LAUNCHES["bcsr_spmv"] == before + 1
+    yp = hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values, x, n)
+    assert yk.dtype == torch.float64
+    assert _rel(yk, yp) <= LIMIT[torch.float64]

@@ -297,7 +297,9 @@ VERBATIM = ["utils/errors.py", "ops/ragged.py", "ops/csr.py", "mesh/mesh.py",
             "partitioning/partitioners.py", "amge/dofhandler.py",
             "amge/dofagg.py", "amge/localmass.py", "amge/cochain.py",
             "amge/hexfe.py", "amge/tetfe.py", "amge/fespace.py",
-            "models/spectral.py"]
+            "models/spectral.py", "utils/params.py",
+            "models/electric_potential.py", "models/elasticity.py",
+            "models/embedded.py", "models/logical_demo.py"]
 
 
 def _rewritten(text):

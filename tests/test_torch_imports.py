@@ -94,14 +94,16 @@ def _entry_points():
     one, on tiny inputs (name -> thunk)."""
     import scipy.sparse as sp
     from parelag_tpu_torch import (
-        convert, darcy_lane, entry, flagship, generic_lane, maxwell_lane,
-        spectral_lane)
+        convert, darcy_lane, entry, flagship, generic_lane, library_lane,
+        maxwell_lane, spectral_lane)
     from parelag_tpu_torch.amge import (
         spectral, structured, structured_spectral, structured_spectral_ml)
     from parelag_tpu_torch.amge.hybridization import HybridHdivL2
+    from parelag_tpu_torch.models import maxwell, multigrid, upscaling
     from parelag_tpu_torch.ops import batched, device_sparse as ds
     from parelag_tpu_torch.solvers import (
-        amge_solver, autotune, block, cg, hierarchy, sa_amg, smoothers)
+        amge_solver, autotune, block, cg, hierarchy, library, sa_amg,
+        saddle_extra, smoothers)
     I = sp.identity(8, format="csr")
     D = sp.csr_matrix(np.ones((8, 2)))
     A1, B1 = np.eye(2)[None], np.ones((1, 2, 1))
@@ -182,6 +184,17 @@ def _entry_points():
             lambda: spectral_lane.lane_spe10_structured((2, 2, 2)),
         "spectral_lane.lane_spe10_ml":
             lambda: spectral_lane.lane_spe10_ml((2, 2, 2)),
+        "library.SolverState": lambda: library.SolverState([], [0]),
+        "library_lane.build_chain": lambda: library_lane.build_chain(1),
+        "library_lane.lane_library": lambda: library_lane.lane_library(1),
+        "multigrid.multigrid_test_form":
+            lambda: multigrid.multigrid_test_form(0, nref=1),
+        "maxwell.upscaling_maxwell":
+            lambda: maxwell.upscaling_maxwell(nref_parallel=1),
+        "saddle_extra.MLDivFree": lambda: saddle_extra.MLDivFree([]),
+        "upscaling.build_hierarchy(backend='device')":
+            lambda: upscaling.build_hierarchy(nref_parallel=1,
+                                              backend="device"),
     }
 
 

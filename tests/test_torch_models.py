@@ -1,0 +1,238 @@
+"""The port's example drivers (parelag_tpu_torch.models: multigrid,
+upscaling, maxwell and the four host models) against the JAX package on
+the CPU, with the JAX package's goldens.
+
+Tolerances: multigrid_test_form gives the golden iterations exactly and
+convergence factors within 0.02 of tests/test_solvers.py's; the
+UpscalingGeneralForm and Upscaling2FormAMGe errors equal the goldens of
+tests/test_golden_upscaling.py to their 4 printed digits;
+upscaling_maxwell with the AMGe solver within 1e-8 relative of the JAX
+run (both f64); the four copied host models equal the JAX outputs
+within 1e-10 relative (the same numpy code run again).  The copies are
+checked byte for byte against their sources (upscaling.py after
+UPSCALING_EDITS, maxwell.py after MAXWELL_EDITS)."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from parelag_tpu_torch.models import multigrid as tmg
+from parelag_tpu_torch.models import upscaling as tup
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fmt(x):
+    return f"{x:.4e}"
+
+
+def _close(a, b, tol):
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max(initial=0.0) <= tol * max(
+        np.abs(b).max(initial=0.0), 1e-300), (a, b)
+
+
+@pytest.mark.parametrize("form,gold_iters,gold_conv", [
+    (0, 4, 0.0356),
+    (1, 7, 0.1495),
+    (2, 9, 0.2400),
+])
+def test_multigrid_test_form_goldens(form, gold_iters, gold_conv):
+    """tests/test_solvers.py:56-71's goldens, the hierarchy and the PCG
+    on torch tensors."""
+    r = tmg.multigrid_test_form(form, nref=2, device="cpu")
+    assert r.iterations == gold_iters
+    assert abs(r.conv_factor - gold_conv) < 0.02
+    assert r.final_residual < 3e-5
+
+
+def test_multigrid_cycle_loop_matches_jax():
+    """use_pcg=False (the plain V-cycle loop) against the JAX driver."""
+    from parelag_tpu.models.multigrid import multigrid_test_form as jmg
+    rj = jmg(0, nref=1, use_pcg=False)
+    rt = tmg.multigrid_test_form(0, nref=1, use_pcg=False, device="cpu")
+    assert rt.iterations == rj.iterations and rt.ndofs == rj.ndofs
+    _close(rt.final_residual, rj.final_residual, 1e-8)
+
+
+@pytest.mark.parametrize("form,l2,energy", [
+    (0, "1.8389e-02", "2.1485e-01"),
+    (1, "3.1436e-02", "3.2016e-01"),
+    (2, "9.1847e-03", "1.2515e-01"),
+])
+def test_upscaling_general_form_goldens(form, l2, energy):
+    r = tup.upscaling_general_form(form, nref_parallel=1)
+    assert _fmt(r.u_l2_errors[0]) == l2
+    assert _fmt(r.u_energy_errors[0]) == energy
+
+
+def test_upscaling_2form_amge_goldens():
+    r = tup.upscaling_2form_amge()
+    assert [_fmt(x) for x in r.u_l2_errors] == ["1.9010e-02", "3.9570e-03"]
+    assert [_fmt(x) for x in r.u_energy_errors] == [
+        "1.2883e-01", "5.7793e-02"]
+
+
+def test_high_order_is_refused():
+    with pytest.raises(NotImplementedError, match="A11"):
+        tup.build_hierarchy(nref_parallel=0, feorder=1)
+
+
+def test_device_backend_chain_matches_the_host_one():
+    """build_hierarchy(backend='device') (pass 2 through torch, here on
+    the CPU) keeps every level's dims of the host chain and P within
+    5e-5 (the contract of tests/test_torch_generic.py)."""
+    _, _, sh = tup.build_hierarchy(nref_parallel=2)
+    _, _, sd = tup.build_hierarchy(nref_parallel=2, backend="device",
+                                   device="cpu")
+    assert len(sd) == len(sh) == 3
+    for a, b in zip(sh, sd):
+        assert [a.dof[j].ndofs for j in range(4)] == \
+            [b.dof[j].ndofs for j in range(4)]
+    for a, b in zip(sh[:-1], sd[:-1]):
+        for j in range(4):
+            _close(b.P[j].toarray(), a.P[j].toarray(), 5e-5)
+
+
+def test_upscaling_maxwell_amge_matches_jax():
+    """UpscalingMaxwell with the Hiptmair AMGe PCG on the fine level."""
+    from parelag_tpu.models.maxwell import upscaling_maxwell as jmx
+    from parelag_tpu_torch.models.maxwell import upscaling_maxwell as tmx
+    rj = jmx(nref_parallel=1, use_amge_solver=True)
+    rt = tmx(nref_parallel=1, use_amge_solver=True, device="cpu")
+    assert rt.ndofs == rj.ndofs
+    for k in ("u_l2_errors", "u_energy_errors", "u_norms"):
+        _close(getattr(rt, k), getattr(rj, k), 1e-8)
+
+
+def _models(side):
+    pkg = "parelag_tpu" if side == "jax" else "parelag_tpu_torch"
+    import importlib
+    return {m: importlib.import_module(f"{pkg}.models.{m}")
+            for m in ("electric_potential", "elasticity", "embedded",
+                      "logical_demo")}
+
+
+def _outputs(side, which):
+    """Each copied model at its JAX test's size, as plain arrays."""
+    m = _models(side)[which]
+    if which == "electric_potential":
+        r = m.electric_potential(nref=1, n=4, n_levels=2)
+        return [r.ndofs_u, r.u_analytic_errors, r.p_analytic_errors,
+                r.u_upscaling_errors, [r.u_norm]]
+    if which == "elasticity":
+        r = m.elasticity_upscaling(nref_parallel=1)
+        return [r.ndofs, r.u_l2_errors, r.u_energy_errors, r.u_norms]
+    if which == "embedded":
+        topo, coarse, seq, ae_attr = m.embedded_demo(n=4, nref=1,
+                                                     n_parts=16)
+        return [[coarse.num_entities(0)],
+                [len(a) for a in ae_attr],
+                np.concatenate([np.asarray(a) for a in ae_attr]),
+                [seq.dof[j].ndofs for j in range(4)]]
+    r = m.logical_partitioner_demo()
+    return [r.ndofs, r.u_l2_errors, r.u_energy_errors, r.u_norms]
+
+
+@pytest.mark.parametrize("which", ["electric_potential", "elasticity",
+                                   "embedded", "logical_demo"])
+def test_copied_model_matches_jax(which):
+    for a, b in zip(_outputs("port", which), _outputs("jax", which)):
+        _close(a, b, 1e-10)
+
+
+def _rewritten(text):
+    return re.sub(r"(?m)^(\s*)from parelag_tpu\.", r"\1from parelag_tpu_torch.",
+                  text)
+
+
+# the documented edits of the port's models/upscaling.py: build_hierarchy
+# takes backend= and device= for pass 2 and refuses feorder > 0
+UPSCALING_EDITS = [
+    ("(ReduceAndOutputUpscalingErrors, src/utilities/UpscalingPieces.cpp:"
+     "182-253).\n\"\"\"",
+     "(ReduceAndOutputUpscalingErrors, src/utilities/UpscalingPieces.cpp:"
+     "182-253).\n\n"
+     "A copy of parelag_tpu/models/upscaling.py.  build_hierarchy also "
+     "takes\n"
+     "backend= and device= (pass 2 of every coarsen() on that backend, as\n"
+     "generic_lane.build_h1 sets it), and refuses feorder > 0 until the\n"
+     "high-order spaces are ported (ROADMAP A11).\n\"\"\""),
+    ("from parelag_tpu_torch.mesh.mesh import hex_grid_mesh\n",
+     "from parelag_tpu_torch import resolve_device\n"
+     "from parelag_tpu_torch.mesh.mesh import hex_grid_mesh\n"),
+    ("                    verbose=False, feorder=0):\n",
+     "                    verbose=False, feorder=0, backend=None, "
+     "device=None):\n"),
+    ("    DeRhamSequence.cpp:2080-2083).\"\"\"\n",
+     "    DeRhamSequence.cpp:2080-2083).\n\n"
+     "    backend ('host' | 'device' | None: the sequence's default) is set\n"
+     "    with device (None: the card) on each level before its coarsen()."
+     "\"\"\"\n"),
+    ("        if feorder > 0 and mesh.kind == \"hex\":\n"
+     "            from parelag_tpu_torch.amge.fespace3d_ho import "
+     "DeRhamSequence3DFE_HO\n"
+     "            seqs = [DeRhamSequence3DFE_HO(topos[0], mesh, feorder)]\n"
+     "        elif feorder > 0:\n"
+     "            from parelag_tpu_torch.amge.fespace3d_tet_ho import (\n"
+     "                DeRhamSequenceTetFE_HO)\n"
+     "            seqs = [DeRhamSequenceTetFE_HO(topos[0], mesh, feorder)]\n",
+     "        if feorder > 0:\n"
+     "            raise NotImplementedError(\n"
+     "                \"feorder > 0: the high-order FE spaces are not ported \"\n"
+     "                \"yet (ROADMAP A11)\")\n"),
+    ("    for il in range(n_levels - 1):\n"
+     "        with TimeManager.add_timer(\n"
+     "                f\"DeRhamSequence Construction: level {il + 1}\"):\n",
+     "    for il in range(n_levels - 1):\n"
+     "        if backend is not None:\n"
+     "            seqs[il].solve_backend = backend\n"
+     "            seqs[il].solve_device = resolve_device(device)\n"
+     "        with TimeManager.add_timer(\n"
+     "                f\"DeRhamSequence Construction: level {il + 1}\"):\n"),
+]
+
+# the documented edits of the port's models/maxwell.py: upscaling_maxwell
+# takes device= for the AMGe solve
+MAXWELL_EDITS = [
+    ("Hiptmair-smoothed AMGe V-cycle solves.\n\"\"\"",
+     "Hiptmair-smoothed AMGe V-cycle solves.\n\n"
+     "A copy of parelag_tpu/models/maxwell.py; upscaling_maxwell takes\n"
+     "device= (None: the card, RuntimeError without one): with\n"
+     "use_amge_solver the fine level's Hiptmair AMGe hierarchy and its "
+     "PCG\n"
+     "run there.\n\"\"\""),
+    ("import numpy as np\n\n",
+     "import numpy as np\n\nfrom parelag_tpu_torch import resolve_device\n"),
+    ("                      use_amge_solver=False) -> UpscalingResult:\n",
+     "                      use_amge_solver=False,\n"
+     "                      device=None) -> UpscalingResult:\n"
+     "    device = resolve_device(device)\n"),
+    ("            H, _, _ = build_amge_hierarchy(seqs, 1, A2, "
+     "smoother=smoother)\n"
+     "            x, info = amge_pcg_solve(H, H.levels[0].A, b, rtol=1e-8)\n",
+     "            H, _, _ = build_amge_hierarchy(seqs, 1, A2, "
+     "smoother=smoother,\n"
+     "                                           device=device)\n"
+     "            x, info = amge_pcg_solve(H, H.levels[0].A, b, rtol=1e-8,\n"
+     "                                     device=device)\n"),
+]
+
+
+@pytest.mark.parametrize("path,edits", [
+    ("models/upscaling.py", UPSCALING_EDITS),
+    ("models/maxwell.py", MAXWELL_EDITS)], ids=["upscaling", "maxwell"])
+def test_copied_driver_equals_its_source(path, edits):
+    with open(os.path.join(ROOT, "parelag_tpu", path)) as f:
+        src = _rewritten(f.read())
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    with open(os.path.join(ROOT, "parelag_tpu_torch", path)) as f:
+        assert f.read() == src
