@@ -5,7 +5,11 @@
                                 # Maxwell, the generic engine, entry(),
                                 # the hybridized Darcy lanes, the
                                 # XML solver library at 64^3, the
-                                # structured spectral SPE10 lanes
+                                # structured spectral SPE10 lanes,
+                                # the high-order ho_p2 lane at 16^3
+                                # (and with RCM), the structured
+                                # engine's heterogeneous and Darcy
+                                # chains
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
@@ -78,6 +82,23 @@
       per level as on the CPU, stage residuals and the spot oracle in
       their limits, u_l2_rel within ML_U_L2_LIMIT of the CPU's.
    (g-i run no hand kernel: their stages are batched torch.linalg.)
+   j. the high-order lane, ho_lane.lane_ho(NX_HO, p=HO_P): the order-2
+      de Rham sequence on 16^3 (117,649 H1 dofs), one 2x2x2 coarsening
+      with pass 2 on the card, the f32 hierarchy (A0 a 343-slot ELL
+      matrix, BCSR transfers) and f32 PCG with its bf16 cast as the
+      preconditioner: iterations within ITER_SLACK of the host f64
+      anchor, rel_res <= 1e-4, ell_spmv (the bf16 A0 of the cycle too)
+      and bcsr_spmv launched; then the lane at 4^3 on the card and on
+      the CPU (equal coarse dims, iterations within one);
+   k. RCM, ho_lane.build_solver(..., reorder="rcm") on the same
+      matrices: iterations within one of the unpermuted solve, x within
+      RCM_X_LIMIT relative, the formats per level printed;
+   l. the structured engine's remaining forms: the heterogeneous chain
+      fine_level((64,)*3, coeff=...) -> coarsen_chain(3) on the card
+      (a log-uniform coefficient per coarsest agglomerate, seed 7),
+      materialize_P for all four forms, and its Galerkin and commutation
+      residuals on the host <= A4_LIMIT; coarsen_darcy at 96^3 against
+      coarsen_structured(jform_start=2) within 1e-12 (no hand kernel).
    Then each slice at a small size on the card and on the CPU (plain
    versions) must agree: the flagship at 16^3, Maxwell at 6^3, the
    generic engine at 8^3 (the host backend on the CPU against the device
@@ -97,6 +118,11 @@
    function, from the bytes and operations this run's data needs (see
    _compare); format_bytes is what the kernel's own format streams,
    padding included.
+   The ho rows hold the high-order lane's A0 (f32 ELL, the PCG
+   matvec; bf16 ELL with bf16 and f32 x, the cycle's two pairs, the
+   first bf16 ELL products on a main path) and its bf16 BCSR P0 / R0,
+   each with bound_slots_ms beside bound_ms: the padded table's stream
+   (format_bytes) over the memory rate.
    The SPE10 rows include every level's SA hierarchy of the generic
    SPE10 lane (e), BCSR transfers included; the library rows are f64
    (library_lane.kernel_operators: every operator of the form-0 AMGe
@@ -122,7 +148,8 @@ import torch
 
 from parelag_tpu_torch import (
     darcy_lane, device as pick_device, entry, flagship, generic_lane,
-    kernel_profile, library_lane, maxwell_lane, spectral_lane)
+    ho_lane, kernel_profile, library_lane, maxwell_lane, spectral_lane)
+from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.amge import structured_spectral as sps
 from parelag_tpu_torch.models.multigrid import multigrid_test_form
 from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
@@ -177,6 +204,13 @@ LIB_X_LIMIT = 1e-8      # card against CPU: x relative
 # multigrid_test_form(form, nref=2): the JAX package's golden PCG
 # iterations (tests/test_solvers.py)
 MG_GOLDEN_ITERS = {0: 4, 1: 7, 2: 9}
+NX_HO, HO_P = ho_lane.NX, ho_lane.P     # bench.py's ho_p2: 16^3, p = 2
+NX_HO_SMALL = 4         # card against CPU: 2,197 H1 dofs
+RCM_X_LIMIT = 1e-4      # RCM against the unpermuted solve: x relative
+A4_SHAPE, A4_LEVELS = (64, 64, 64), 3   # the heterogeneous chain
+A4_DARCY_SHAPE = (96, 96, 96)           # coarsen_darcy, the flagship grid
+A4_LIMIT = 1e-11        # Galerkin and commutation residuals (f64)
+A4_DARCY_LIMIT = 1e-12  # coarsen_darcy against the full chain's stages
 
 # name -> (source, the TPU kernel it replaces (file:line), main path)
 SOURCES = {
@@ -469,7 +503,58 @@ def _op_rows(rows, path, mats, dev, rng):
         del csr
 
 
-def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, dev):
+def _ho_rows(rows, H, Hb, dev, rng):
+    """The high-order lane's operators as its solve applies them: A0 in
+    f32 ELL (the PCG matvec) and in bf16 ELL with bf16 and with f32 x
+    (the cycle's two pairs), P0 and R0 in bf16 BCSR with bf16 and f32 x.
+    bound_ms counts the nonzeros (values, int32 columns and row
+    pointers), x and y; bound_slots_ms the stream of the format as
+    stored (format_bytes: the ELL table's 343 slots a row, padding
+    included) over the memory rate."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    lvl, lvlb = H.levels[0], Hb.levels[0]
+    for label, M, xdts in (("A0", lvl.A, (f32,)), ("A0", lvlb.A, (bf16, f32)),
+                           ("P0", lvlb.P, (bf16, f32)),
+                           ("R0", lvlb.R, (bf16, f32))):
+        name = kernel_profile.KERNEL_OF[type(M)]
+        n, m = M.shape
+        nnz = kernel_profile._nnz(M)
+        csr = kernel_profile._library_csr(M)
+        if name == "ell_spmv":
+            args = (M.indices, M.values)
+            k = M.values.shape[1]
+            tag = f"k={k} {hk.ell_launch_plan(n, k).tag()}"
+        else:
+            args = (M.row_ptr, M.col_idx, M.values)
+            tag = f"group={M.group}"
+        for xdt in xdts:
+            x = torch.as_tensor(rng.randn(m).astype(np.float32)).to(xdt)
+            x = x.to(dev)
+            y_bytes = n * torch.empty((), dtype=torch.promote_types(
+                M.dtype, xdt)).element_size()
+            if name == "ell_spmv":
+                kernel = (lambda: hk.ell_spmv(*args, x))
+                plain = (lambda: hk.ell_spmv_plain(*args, x))
+            else:
+                kernel = (lambda: hk.bcsr_spmv(*args, x, n))
+                plain = (lambda: hk.bcsr_spmv_plain(*args, x, n))
+            same = xdt == M.dtype      # the library call takes one dtype
+            fmt = _nbytes(*args, x) + y_bytes
+            row = _compare(
+                name, f"ho {label} {_TAG[M.dtype]} values {_TAG[xdt]} x "
+                f"{n}x{m} nnz={nnz} {tag}", kernel, plain,
+                nnz * (M.values.element_size() + 4) + (n + 1) * 4
+                + _nbytes(x) + y_bytes, 2 * nnz, fmt,
+                (lambda: csr @ x) if same else None,
+                None if same else kernel_profile.MIXED_NOTE)
+            row["bound_slots_ms"] = fmt / PEAK_BYTES * 1e3
+            print(f"    bound by the stored format {row['bound_slots_ms']:.4f}"
+                  f" ms ({fmt} bytes)")
+            rows[name].append(row)
+        del csr
+
+
+def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dev):
     """Each kernel against its plain version at the main paths' shapes,
     on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
@@ -483,7 +568,8 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, dev):
     and every block level, BCSR on the rest, whose uneven rows (~100-600
     nonzeros on the SA coarse levels) reach the kernels' tail
     handling.  library: the library lane's f64 operators
-    (library_lane.kernel_operators)."""
+    (library_lane.kernel_operators).  ho: the high-order lane's (H, Hb)
+    (_ho_rows)."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
@@ -510,6 +596,7 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, dev):
     for l, H in enumerate(spe10):
         _op_rows(rows, f"spe10 L{l} SA", level_operators(H), dev, rng)
     _op_rows(rows, "library", library, dev, rng)
+    _ho_rows(rows, *ho, dev, rng)
     return rows
 
 
@@ -999,6 +1086,130 @@ def check_library(rec, launches, n16):
         raise SystemExit("FAIL library path: " + "; ".join(fails))
 
 
+def check_ho(rec, launches, Hb):
+    """The ho_p2 record: 117,649 dofs at 16^3, p = 2, converged within
+    ITER_SLACK iterations of the host f64 anchor, rel_res <= 1e-4, A0 an
+    ELL matrix whose bf16 cast the cycle applies (more ell_spmv
+    launches in the timed solves than their f32 PCG matvecs, one an
+    iteration and one to start), BCSR transfers, both kernels launched
+    on the path."""
+    fails = []
+    nv = (HO_P * NX_HO + NX_HO + 1) ** 3
+    if rec["ndofs"] != nv:
+        fails.append(f"ndofs {rec['ndofs']} != {nv}")
+    if not rec["converged"]:
+        fails.append(f"PCG did not meet the r.z stop in {rec['iters']}")
+    if abs(rec["iters"] - rec["host_iters"]) > ITER_SLACK:
+        fails.append(f"iters {rec['iters']} vs host {rec['host_iters']}")
+    if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] <= 1e-4):
+        fails.append(f"rel_res {rec['rel_res']} > 1e-4")
+    A0b = Hb.levels[0].A
+    if type(A0b).__name__ != "EllMatrix" or A0b.dtype != torch.bfloat16:
+        fails.append(f"the cycle's A0 is {type(A0b).__name__} "
+                     f"{A0b.dtype}, not a bf16 EllMatrix")
+    if set(rec["transfers"]) != {"BcsrMatrix"}:
+        fails.append(f"transfers {rec['transfers']}")
+    f32_matvecs = sum(it + 1 for it in rec["timed_iters"])
+    if rec["kernels"]["ell_spmv"] <= f32_matvecs:
+        fails.append(f"ell_spmv {rec['kernels']['ell_spmv']} launches in "
+                     f"the timed solves, no more than their {f32_matvecs} "
+                     "f32 matvecs: the bf16 cycle did not apply A0")
+    for k in ("ell_spmv", "bcsr_spmv"):
+        if launches[k] <= 0 or rec["kernels"][k] <= 0:
+            fails.append(f"kernel {k} never launched on the ho path")
+    if fails:
+        raise SystemExit("FAIL ho path: " + "; ".join(fails))
+
+
+def small_check_ho(dev):
+    """lane_ho at NX_HO_SMALL^3, p = 2, on the card and on the CPU: equal
+    coarse dims, iterations within one, both rel_res <= 1e-4."""
+    recs = [ho_lane.lane_ho(NX_HO_SMALL, HO_P, d)[0] for d in ("cpu", dev)]
+    (rc, rg) = recs
+    print(f"small check ho {NX_HO_SMALL}^3 p={HO_P}: dims card {rg['dims']}"
+          f" cpu {rc['dims']}, iters card {rg['iters']} cpu {rc['iters']},"
+          f" rel_res card {rg['rel_res']:.3e} cpu {rc['rel_res']:.3e}")
+    if not (rg["dims"] == rc["dims"] and abs(rg["iters"] - rc["iters"]) <= 1
+            and max(rg["rel_res"], rc["rel_res"]) <= 1e-4):
+        raise SystemExit("FAIL small check ho: card and CPU disagree")
+
+
+def check_rcm(it, it_ref, dx, rel):
+    print(f"  rcm: iters {it} (unpermuted {it_ref}), |x - x_ref|/|x_ref| "
+          f"{dx:.3e} (limit {RCM_X_LIMIT:g}), rel_res {rel:.3e}")
+    if not (abs(it - it_ref) <= 1 and dx <= RCM_X_LIMIT and rel <= 1e-4):
+        raise SystemExit("FAIL rcm: the reordered solve disagrees")
+
+
+def _sp_rel(A, B):
+    D = sp.csr_matrix(A - B)
+    den = max(np.abs(sp.csr_matrix(B).data).max(initial=0.0), 1e-300)
+    return float(np.abs(D.data).max(initial=0.0) / den)
+
+
+def a4_coeff(shape, cshape, seed=7):
+    """tests/test_structured.py's heterogeneous regime: a log-uniform
+    coefficient 10^U(-2, 2) (numpy default_rng(seed)), constant on each
+    coarse cell of cshape (agglomerate-resolved, so the chain keeps its
+    static structure down to cshape)."""
+    rng = np.random.default_rng(seed)
+    f = tuple(s // c for s, c in zip(shape, cshape))
+    per_ae = 10.0 ** rng.uniform(-2, 2, size=int(np.prod(cshape)))
+    k, j, i = np.meshgrid(*(np.arange(s) for s in shape[::-1]),
+                          indexing="ij")
+    ae = ((k // f[2]) * cshape[1] + j // f[1]) * cshape[0] + i // f[0]
+    return per_ae[ae.ravel()]
+
+
+def structured_a4(dev):
+    """Phase l: the heterogeneous chain on the card with its Galerkin and
+    commutation residuals on the host, and coarsen_darcy against the
+    full chain's L2/Hdiv stages at A4_DARCY_SHAPE."""
+    t0 = time.perf_counter()
+    cshape = tuple(s >> (A4_LEVELS - 1) for s in A4_SHAPE)
+    lvl0 = stc.fine_level(A4_SHAPE, coeff=a4_coeff(A4_SHAPE, cshape),
+                          device=dev)
+    levels, outs = stc.coarsen_chain(lvl0, A4_LEVELS)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    gal = com = 0.0
+    for lvl, out, coarse in zip(levels, outs, levels[1:]):
+        P = [stc.materialize_P(out, lvl.shape, j) for j in range(4)]
+        for j in range(4):
+            gal = max(gal, _sp_rel((P[j].T @ stc.global_mass(lvl, j)
+                                    @ P[j]).tocsr(),
+                                   stc.global_mass(coarse, j)))
+        for j in range(3):
+            lhs = (stc.global_derivative(lvl, j) @ P[j]).tocsr()
+            rhs = (P[j + 1] @ stc.global_derivative(coarse, j)).tocsr()
+            com = max(com, _sp_rel(rhs, lhs))
+    print(f"  heterogeneous chain {A4_SHAPE} x {A4_LEVELS} levels on the "
+          f"card {chain_s:.2f} s: Galerkin {gal:.3e}, commutation "
+          f"{com:.3e} (limit {A4_LIMIT:g}), trace sv "
+          f"{max(o.max_rel_sv for o in outs):.3e}")
+    del levels, outs, lvl0
+    lvl0 = stc.fine_level(A4_DARCY_SHAPE, device=dev)
+    t0 = time.perf_counter()
+    cd, od = stc.coarsen_darcy(lvl0)
+    torch.cuda.synchronize()
+    darcy_s = time.perf_counter() - t0
+    cs, os_ = stc.coarsen_structured(lvl0, jform_start=2)
+    dd = max([_rel(getattr(od, f).double().cpu().numpy(),
+                   getattr(os_, f).double().cpu().numpy())
+              for f in ("ptr3", "f3", "ptr2", "f2", "pint2", "d2c")]
+             + [_rel(getattr(cd, f).double().cpu().numpy(),
+                     getattr(cs, f).double().cpu().numpy())
+                for f in ("m03", "m12", "m02", "d2", "t3", "t2")])
+    P2, P3 = stc.materialize_P_darcy(od, A4_DARCY_SHAPE)
+    print(f"  coarsen_darcy {A4_DARCY_SHAPE} on the card {darcy_s:.2f} s: "
+          f"against coarsen_structured(jform_start=2) {dd:.3e} (limit "
+          f"{A4_DARCY_LIMIT:g}); P2 {P2.shape} P3 {P3.shape}")
+    if not (gal <= A4_LIMIT and com <= A4_LIMIT and dd <= A4_DARCY_LIMIT):
+        raise SystemExit("FAIL structured_a4")
+    return dict(chain_s=chain_s, galerkin=gal, commutation=com,
+                darcy_s=darcy_s, darcy_diff=dd)
+
+
 def check_entry(dev):
     """entry.entry() on the card against the same call on the CPU."""
     fn, args = entry.entry()
@@ -1246,6 +1457,55 @@ def main():
     phase("spe10_ml", t0)
 
     t0 = time.perf_counter()
+    print(f"main path ho (ho_lane.lane_ho({NX_HO}, p={HO_P}), pass 2 on the "
+          "card):")
+    (horec, (ho_seqs, ho_A, ho_b, ho_H, ho_Hb, ho_x)), l_ho = _path(
+        "ho", lambda: ho_lane.lane_ho(NX_HO, HO_P, dev))
+    print("  record: " + json.dumps(horec))
+    print(f"  ndofs={horec['ndofs']} dims={horec['dims']} level_nnz="
+          f"{horec['level_nnz']} formats={horec['formats']} transfers="
+          f"{horec['transfers']}")
+    print(f"  setup_s={horec['setup_s']:.2f} (topo {horec['topo_s']:.2f}, "
+          f"fe {horec['fe_s']:.2f}, coarsen {horec['coarsen_s']:.2f} with "
+          f"pass 2 {horec['coarsen_timers']['coarsen: ext pass2 solve']:.2f}"
+          f", hierarchy {horec['hierarchy_s']:.2f}) iters={horec['iters']} "
+          f"(host anchor {horec['host_iters']}) rel_res="
+          f"{horec['rel_res']:.3e} solve_s={horec['solve_s']:.5f} "
+          f"value={horec['value']:.4e} kernels={horec['kernels']}")
+    check_ho(horec, l_ho, ho_Hb)
+    small_check_ho(dev)
+    phase("ho", t0)
+
+    t0 = time.perf_counter()
+    print("main path rcm (ho_lane.build_solver(..., reorder='rcm') on the "
+          "ho matrices):")
+
+    def rcm_solve():
+        Hr, Hbr, _, _ = ho_lane.build_solver(ho_seqs, ho_A, dev,
+                                             reorder="rcm")
+        bt = torch.as_tensor(ho_b.astype(np.float32)).to(dev)
+        xr, (it, _) = ho_lane.solve(Hr, Hbr, bt)
+        return Hr, xr, int(it)
+
+    (Hr, xr, it_r), l_rcm = _path("rcm", rcm_solve)
+    tiles = [(l.A.nbr, l.A.kb) for l in Hr.levels if hasattr(l.A, "kb")]
+    print(f"  formats {[type(l.A).__name__ for l in Hr.levels]} (BCSR tile "
+          f"counts nbr, kb {tiles}); unpermuted {horec['formats']}")
+    check_rcm(it_r, horec["iters"],
+              float((xr - ho_x).norm() / ho_x.norm()),
+              ho_lane.rel_res(ho_A, ho_b, xr))
+    if l_rcm["ell_spmv"] + l_rcm["bcsr_spmv"] <= 0:
+        raise SystemExit("FAIL rcm: no kernel launched")
+    del Hr, xr, ho_seqs, ho_A, ho_b, ho_x
+    phase("rcm", t0)
+
+    t0 = time.perf_counter()
+    print(f"main path structured_a4 (fine_level({A4_SHAPE}, coeff=...), "
+          f"coarsen_chain, materialize_P, coarsen_darcy {A4_DARCY_SHAPE}):")
+    _, l_a4 = _path("structured_a4", lambda: structured_a4(dev))
+    phase("structured_a4", t0)
+
+    t0 = time.perf_counter()
     small_check(dev)
     small_check_maxwell(dev)
     small_check_generic(dev)
@@ -1258,7 +1518,7 @@ def main():
     print("kernel phase (kernel vs plain on the card):")
     rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
                         (darcy_Hd, darcy_H, block_H), spe10_H, lib_ops,
-                        dev)
+                        (ho_H, ho_Hb), dev)
     phase("kernels", t0)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
@@ -1270,7 +1530,9 @@ def main():
                    "darcy_hyb": l_dh[name], "spe10": l_sp[name],
                    "darcy_block": l_bk[name], "library": l_lib[name],
                    "spe10_structured": l_sx[name],
-                   "spe10_full": l_sf[name], "spe10_ml": l_ml[name]}
+                   "spe10_full": l_sf[name], "spe10_ml": l_ml[name],
+                   "ho": l_ho[name], "rcm": l_rcm[name],
+                   "structured_a4": l_a4[name]}
         kernels.append(dict(
             name=name, path=path, route="cuda", source=src,
             replaces=replaces,
@@ -1283,6 +1545,8 @@ def main():
                             if v["variant"].startswith("spe10")],
             library_variants=[v["variant"] for v in r
                               if v["variant"].startswith("library")],
+            ho_variants=[v["variant"] for v in r
+                         if v["variant"].startswith("ho")],
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
             ms=head["ms"], plain_ms=head["plain_ms"],

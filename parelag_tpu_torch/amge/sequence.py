@@ -741,8 +741,10 @@ class DeRhamSequence:
                 D2st = Rg.take(D2locs, idxs, (ne2, np_all))
                 W2st = Rg.take(W2d, idxs, (ne2, ne2))
                 D2i = D2st[:, :, :np_int]
-                Cst = np.einsum("bki,bkl,blj->bij", D2i, W2st, D2i,
-                                optimize=True)
+                # two batched GEMMs: the einsum's batch index is shared
+                # by all three operands, which keeps it off BLAS
+                Cst = np.matmul(np.matmul(D2i.transpose(0, 2, 1), W2st),
+                                D2i)
                 nsys = nu_int + np_int
                 # every block of A is written below -> np.empty
                 A = np.empty((m, nsys, nsys), dtype=dt)

@@ -1,15 +1,12 @@
 """Structured AMGe setup for cartesian-nested hex grids (PyTorch).
 
-Counterpart of parelag_tpu/amge/structured.py, restricted to what the H1
-flagship setup (bench.py::_structured_chain and _build_h1_structured)
-and the Maxwell lane's structured branch (bench.py::lane_maxwell: the
-global masses and derivatives, the boundary marker and the H(curl)
-prolongator) reach: on a cartesian 2x2x2 agglomeration of a hex grid
-with order-0 upscaling targets every agglomerated entity of a family has
-the same local structure, so every stage of Coarsen() is one uniform
-batched dense operation over all entities of the family.  The stage
-cores for all four forms are here, because H1 coarsening consumes the
-Hdiv and Hcurl outputs.
+Counterpart of parelag_tpu/amge/structured.py: on a cartesian 2x2x2
+agglomeration of a hex grid with order-0 upscaling targets every
+agglomerated entity of a family has the same local structure, so every
+stage of Coarsen() is one uniform batched dense operation over all
+entities of the family.  The chain runs from L2 down to jform_start
+(H1 coarsening consumes the Hdiv and Hcurl outputs); coarsen_darcy is
+the Hdiv-L2 pair alone (jform_start=2).
 
 Differences from the JAX module:
   * stages run on the device of the level's tensors (the card, or the
@@ -19,7 +16,9 @@ Differences from the JAX module:
   * one plain chunk loop over entities (_run_stage, chunk size _CHUNK)
     replaces the jitted whole-level program and the three chunk dispatch
     modes; chunk=0 runs each stage over the whole level in one piece;
-  * the static-structure guards raise RuntimeError instead of assert;
+  * the static-structure guards raise RuntimeError instead of assert
+    (coarsen_darcy's too; its DarcyLevelOut has no Newton-Schulz
+    residual);
   * coarsening, P materialization and the stiffness blocks run in full
     f32/f64 (TF32 off), as the JAX module traces under matmul precision
     "float32".
@@ -377,6 +376,31 @@ def assemble_d_csr(dvals, dcols, shape_mat):
     return sp.coo_matrix(
         (dvals.ravel(), (rows, np.asarray(dcols).ravel())),
         shape=shape_mat).tocsr()
+
+
+def fine_global_masses(shape, h, dtype=np.float64, coeff=None):
+    """Host global mass CSRs per form (for parity tests and operator
+    assembly); coeff: optional per-cell scalar weighting of the codim-0
+    masses (SPE10-class heterogeneity)."""
+    ref = fine_local_masses(h, dtype)
+    nc, nf, ne, nv = grid_counts(shape)
+
+    def wblk(M):
+        if coeff is None:
+            return M
+        return np.asarray(coeff, dtype)[:, None, None] * M
+
+    return {
+        0: assemble_global(wblk(ref[(0, 0)]), cell_verts(shape), nv),
+        1: assemble_global(wblk(ref[(0, 1)]), cell_edges(shape),
+                           sum(ne)),
+        2: assemble_global(wblk(ref[(0, 2)]), cell_faces(shape),
+                           sum(nf)),
+        3: assemble_global(wblk(ref[(0, 3)]),
+                           np.arange(nc, dtype=np.int64)[:, None], nc),
+    }
+
+
 # --------------------------------------------------------------------- #
 # coarse->fine child id arrays (factor-2 nesting)
 # --------------------------------------------------------------------- #
@@ -963,13 +987,18 @@ class StructuredLevel:
     t3: object = None       # (nc, k3)
 
 
-def fine_level(shape, dtype=torch.float64, device=None) -> StructuredLevel:
-    """Level-0 state on the [0,1]^3 brick grid (cell size 1/shape per
-    axis), homogeneous coefficients, on `device` (None: the card).  The
-    per-entity local matrices are identical, so they are stored as
-    broadcast (stride-0) views of one block each."""
+def fine_level(shape, h=None, dtype=torch.float64, coeff=None,
+               l2_weight=None, device=None) -> StructuredLevel:
+    """Level-0 state on a brick grid of cell size h (None: 1/shape per
+    axis, the [0,1]^3 grid), on `device` (None: the card).  coeff: a
+    per-cell scalar weighting the codim-0 masses of all forms
+    (heterogeneous media); l2_weight: a separate per-cell weight for the
+    L2 mass (Darcy W; None: coeff).  Local matrices that are identical
+    for every entity (all of them without coeff) are stored as broadcast
+    (stride-0) views of one block each."""
     device = resolve_device(device)
-    h = tuple(1.0 / s for s in shape)
+    if h is None:
+        h = tuple(1.0 / s for s in shape)
     nc, nf, ne, nv = grid_counts(shape)
     dt = as_torch_dtype(dtype)
     # host values in the level's precision, as the JAX module builds them
@@ -990,12 +1019,19 @@ def fine_level(shape, dtype=torch.float64, device=None) -> StructuredLevel:
                                      device=device)
                           for v, c in zip(vals, counts)])
 
+    def weighted(M):
+        B = bc(M, nc)
+        return B if coeff is None else c[:, None, None] * B
+
+    c = None if coeff is None else tt(coeff)
+    w = tt(l2_weight) if l2_weight is not None else c
     lvl = StructuredLevel(shape=tuple(shape))
-    lvl.m00 = bc(ref[(0, 0)], nc)
-    lvl.m01 = bc(ref[(0, 1)], nc)
-    lvl.m02 = bc(ref[(0, 2)], nc)
-    lvl.m03 = torch.full((nc,), float(ref[(0, 3)][0, 0]), dtype=dt,
-                         device=device)
+    lvl.m00 = weighted(ref[(0, 0)])
+    lvl.m01 = weighted(ref[(0, 1)])
+    lvl.m02 = weighted(ref[(0, 2)])
+    lvl.m03 = (torch.full((nc,), float(ref[(0, 3)][0, 0]), dtype=dt,
+                          device=device) if w is None
+               else w * float(ref[(0, 3)][0, 0]))
     lvl.m10 = fam(ref[(1, 0)], nf)
     lvl.m11 = fam(ref[(1, 1)], nf)
     lvl.m12 = full([ref[(1, 2)][a][0, 0] for a in range(3)], nf)
@@ -1385,18 +1421,43 @@ class LevelOut:
     bub_sv: float = 0.0
 
 
-def _level_ids(cshape):
-    """Host id arrays of one coarsening step."""
-    return dict(cc=children_cells(cshape), cf=children_faces(cshape),
-                cfaces=d2_cols(cshape), ufaces=_subgrid_u_faces(cshape),
-                ce=children_edges(cshape), fedges=face_edges_m(cshape),
-                cedges=cell_edges(cshape), fuedges=_face_u_edges(cshape),
-                uedges=_subgrid_u_edges(cshape),
-                cv=children_verts(cshape), everts=d0_cols(cshape),
-                fverts=face_verts(cshape), cverts=cell_verts(cshape),
-                euverts=_edge_u_verts(cshape),
-                fuverts=_face_u_verts(cshape),
-                uverts=_subgrid_u_verts(cshape))
+@dataclass
+class DarcyLevelOut:
+    """Per-level outputs of the Hdiv-L2 coarsening (tensors on the
+    level's device + host id arrays for materialization)."""
+    cshape: tuple
+    ptr3: object            # (ncc, 8)   L2 trace P values
+    f3: object              # (ncc, 8)   L2 cochain functionals
+    ptr2: object            # (ncf, 4)   Hdiv facet-trace P values
+    f2: object              # (ncf, 4)
+    pint2: object           # (ncc, 12, 6) Hdiv interior P values
+    d2c: object             # (ncc, 6)   coarse div values
+    cc: object = None       # (ncc, 8)   fine cell ids (host)
+    cf: object = None       # (ncf, 4)   fine face ids (host)
+    cfaces: object = None   # (ncc, 6)   coarse facet ids (host)
+    ufaces: object = None   # (ncc, 36)  fine face ids, slot order (host)
+    max_rel_sv: float = 0.0
+    bub_sv: float = 0.0
+
+
+def _level_ids(cshape, jform_start=0):
+    """Host id arrays of one coarsening step from L2 down to
+    jform_start."""
+    ids = dict(cc=children_cells(cshape), cf=children_faces(cshape),
+               cfaces=d2_cols(cshape), ufaces=_subgrid_u_faces(cshape))
+    if jform_start <= 1:
+        ids.update(ce=children_edges(cshape),
+                   fedges=face_edges_m(cshape),
+                   cedges=cell_edges(cshape),
+                   fuedges=_face_u_edges(cshape),
+                   uedges=_subgrid_u_edges(cshape))
+    if jform_start <= 0:
+        ids.update(cv=children_verts(cshape), everts=d0_cols(cshape),
+                   fverts=face_verts(cshape), cverts=cell_verts(cshape),
+                   euverts=_edge_u_verts(cshape),
+                   fuverts=_face_u_verts(cshape),
+                   uverts=_subgrid_u_verts(cshape))
+    return ids
 
 
 #: entities per stage chunk: bounds the O(chunk * 54^2) stage tensors
@@ -1431,10 +1492,10 @@ def _run_stage(fn, spec, n, chunk):
                  else torch.cat(leaves, dim=0) for leaves in zip(*parts))
 
 
-def _coarsen_core(arrs, ids, cshape, chunk):
+def _coarsen_core(arrs, ids, cshape, chunk, jform_start=0):
     """One coarsening step as a sequence of chunked stages (L2/Hdiv ->
-    Hcurl -> H1).  Returns (coarse arrays, outputs, max trace sv, max
-    bubble sv)."""
+    Hcurl (jform_start <= 1) -> H1 (jform_start == 0)).  Returns (coarse
+    arrays, outputs, max trace sv, max bubble sv)."""
     dt = arrs["m03"].dtype
     dev = arrs["m03"].device
     nc, nf, ne, nv = grid_counts(cshape)
@@ -1467,6 +1528,8 @@ def _coarsen_core(arrs, ids, cshape, chunk):
     co["pv2"] = torch.ones(sum(nf), dtype=dt, device=dev)
     svs += [sv3, sv2]
     bubs += [bub2]
+    if jform_start >= 2:
+        return co, out, torch.stack(svs).max(), torch.stack(bubs).max()
 
     # ---- Hcurl --------------------------------------------------------
     ce, fedges, cedges, fuedges, uedges = (
@@ -1499,6 +1562,8 @@ def _coarsen_core(arrs, ids, cshape, chunk):
     co["pv1"] = torch.ones(sum(ne), dtype=dt, device=dev)
     svs += [sv1]
     bubs += [bub1f, bub1c]
+    if jform_start == 1:
+        return co, out, torch.stack(svs).max(), torch.stack(bubs).max()
 
     # ---- H1 -----------------------------------------------------------
     everts_u, fuverts, uverts = (
@@ -1547,21 +1612,25 @@ def _coarsen_core(arrs, ids, cshape, chunk):
 _SVD_TOL = 1e-9
 
 
-def coarsen_structured(lvl: StructuredLevel, chunk=None):
-    """One cartesian 2x2x2 coarsening step of the whole de Rham chain
-    (L2, Hdiv, Hcurl, H1).  Returns (coarse_level, LevelOut).  chunk:
-    None = the module's _CHUNK, 0 = each stage over the whole level in
-    one piece, > 0 = that chunk size."""
+def coarsen_structured(lvl: StructuredLevel, jform_start=0, chunk=None):
+    """One cartesian 2x2x2 coarsening step of the de Rham chain from L2
+    down to `jform_start` (the generic engine's Coarsen() loop, jform =
+    3..jform_start).  Returns (coarse_level, LevelOut).  chunk: None =
+    the module's _CHUNK, 0 = each stage over the whole level in one
+    piece, > 0 = that chunk size."""
     shape = lvl.shape
     if not all(s % 2 == 0 for s in shape):
         raise ValueError(f"shape {shape} is not 2x2x2-coarsenable")
+    if jform_start not in (0, 1, 2):
+        raise ValueError(f"jform_start {jform_start} (need 0, 1 or 2)")
     cshape = tuple(s // 2 for s in shape)
-    ids = _level_ids(cshape)
+    ids = _level_ids(cshape, jform_start)
     arrs = {k: v for k, v in vars(lvl).items()
             if k != "shape" and v is not None}
     with full_precision():
         co, outd, maxsv, maxbub = _coarsen_core(
-            arrs, ids, cshape, _CHUNK if chunk is None else chunk)
+            arrs, ids, cshape, _CHUNK if chunk is None else chunk,
+            jform_start)
 
     coarse = StructuredLevel(shape=cshape, **co)
     out = LevelOut(cshape=cshape, **outd, **ids)
@@ -1581,6 +1650,24 @@ def coarsen_structured(lvl: StructuredLevel, chunk=None):
     return coarse, out
 
 
+def coarsen_darcy(lvl: StructuredLevel, chunk=None):
+    """One structured coarsening step of the Hdiv x L2 pair (the
+    reference's form_start=2 configuration: MultigridTestDarcy /
+    SPE10): the L2 and Hdiv stages of coarsen_structured(jform_start=2),
+    with its guards.  Returns (coarse_level, DarcyLevelOut)."""
+    coarse, out = coarsen_structured(lvl, jform_start=2, chunk=chunk)
+    return coarse, DarcyLevelOut(
+        cshape=out.cshape, ptr3=out.ptr3, f3=out.f3, ptr2=out.ptr2,
+        f2=out.f2, pint2=out.pint2, d2c=out.d2c, cc=out.cc, cf=out.cf,
+        cfaces=out.cfaces, ufaces=out.ufaces, max_rel_sv=out.max_rel_sv,
+        bub_sv=out.bub_sv)
+
+
+def materialize_P_darcy(out: DarcyLevelOut, fshape):
+    """Host CSRs (P2, P3) of one structured Darcy coarsening step."""
+    return materialize_P(out, fshape, 2), materialize_P(out, fshape, 3)
+
+
 def _cell_face_edge_slots():
     """(36, 4) subgrid face (slot order) -> 54-slot positions of its 4
     edges in the canonical M11 order."""
@@ -1597,11 +1684,27 @@ def _np(t):
 
 
 def materialize_P(out: LevelOut, fshape, jform):
-    """Host CSR of the structured P for one form at one level (ported:
-    the H1 form, jform=0, and the H(curl) form, jform=1)."""
+    """Host CSR of the structured P for one form at one level (jform 2
+    and 3 also from a DarcyLevelOut)."""
     import scipy.sparse as sp
     ncf_, nff, nef, nvf = grid_counts(fshape)
     ncc, nfc, nec, nvc = grid_counts(out.cshape)
+    if jform == 3:
+        rows = out.cc.ravel()
+        cols = np.repeat(np.arange(ncc), 8)
+        return sp.coo_matrix((_np(out.ptr3).ravel(), (rows, cols)),
+                             shape=(ncf_, ncc)).tocsr()
+    if jform == 2:
+        rows = np.concatenate([
+            out.cf.ravel(),
+            np.repeat(out.ufaces[:, :12].ravel(), 6)])
+        cols = np.concatenate([
+            np.repeat(np.arange(sum(nfc)), 4),
+            np.tile(out.cfaces, (1, 12)).reshape(-1)])
+        vals = np.concatenate([_np(out.ptr2).ravel(),
+                               _np(out.pint2).ravel()])
+        return sp.coo_matrix((vals, (rows, cols)),
+                             shape=(sum(nff), sum(nfc))).tocsr()
     if jform == 1:
         rows = np.concatenate([
             out.ce.ravel(),
@@ -1616,8 +1719,7 @@ def materialize_P(out: LevelOut, fshape, jform):
         return sp.coo_matrix((vals, (rows, cols)),
                              shape=(sum(nef), sum(nec))).tocsr()
     if jform != 0:
-        raise NotImplementedError(f"materialize_P for jform={jform} is "
-                                  "not ported yet")
+        raise ValueError(f"jform {jform} (need 0 to 3)")
     rows = np.concatenate([
         out.cv,
         np.repeat(out.euverts[:, 0], 2),
@@ -1637,13 +1739,13 @@ def materialize_P(out: LevelOut, fshape, jform):
 # multilevel chain + global host views
 # --------------------------------------------------------------------- #
 
-def coarsen_chain(lvl: StructuredLevel, nlevels):
+def coarsen_chain(lvl: StructuredLevel, nlevels, jform_start=0):
     """Chain of structured coarsenings (DeRhamSequence.cpp:572-692
-    applied nlevels-1 times).  Returns (levels, outs) with
-    len(levels) == nlevels, fine level first."""
+    applied nlevels-1 times) from L2 down to jform_start.  Returns
+    (levels, outs) with len(levels) == nlevels, fine level first."""
     levels, outs = [lvl], []
     for _ in range(nlevels - 1):
-        lvl, out = coarsen_structured(lvl)
+        lvl, out = coarsen_structured(lvl, jform_start=jform_start)
         levels.append(lvl)
         outs.append(out)
     return levels, outs
@@ -1747,11 +1849,12 @@ def h1_stiffness(lvl: StructuredLevel):
                            cell_verts(lvl.shape), nv)
 
 
-def h1_uniform_cell_block(shape, dtype=np.float64):
+def h1_uniform_cell_block(shape, h=None, dtype=np.float64):
     """(8, 8) per-cell block of M0 + G^T M1 G on the homogeneous fine
-    level of the [0,1]^3 grid — identical for every cell, so the fine
-    operator assembles host-side from one broadcast block."""
-    h = tuple(1.0 / s for s in shape)
+    level (h None: the [0,1]^3 grid) — identical for every cell, so the
+    fine operator assembles host-side from one broadcast block."""
+    if h is None:
+        h = tuple(1.0 / s for s in shape)
     ref = fine_local_masses(h, np.dtype(dtype))
     d0, _, _ = fine_derivative_values(shape, h, np.dtype(dtype))
     ce0 = cell_edges(shape)[0]

@@ -102,10 +102,9 @@ def hierarchy_from_numpy(H, device=None) -> Hierarchy:
     (device=None: on the card): the flagship's and the generic engine's,
     the SA and blocked Darcy hierarchies, and those a JAX library solver
     built (solvers/library.py: _AMGeSolver._H and _AuxAMGSolver._H, with
-    l1-Jacobi, Chebyshev or Hiptmair smoothers)."""
+    l1-Jacobi, Chebyshev or Hiptmair smoothers), with the perm / iperm
+    of an RCM-reordered one."""
     device = resolve_device(device)
-    if getattr(H, "perm", None) is not None:
-        raise TypeError("reordered (RCM) hierarchies are not ported")
     levels = []
     for lvl in H.levels:
         pre = _smoother(lvl.pre, device)
@@ -115,7 +114,10 @@ def hierarchy_from_numpy(H, device=None) -> Hierarchy:
             A=_matrix(lvl.A, device), P=_matrix(lvl.P, device),
             R=_matrix(lvl.R, device), pre=pre, post=post,
             coarse_inv=None if ci is None else _tensor(ci, device)))
-    return Hierarchy(levels, H.mu)
+    perm, iperm = (None if a is None else _tensor(a, device).long()
+                   for a in (getattr(H, "perm", None),
+                             getattr(H, "iperm", None)))
+    return Hierarchy(levels, H.mu, perm, iperm)
 
 
 def structured_level_from_numpy(lvl, device=None) -> StructuredLevel:

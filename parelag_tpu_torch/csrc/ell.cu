@@ -4,9 +4,12 @@
 // never lowered on the TPU: Mosaic has no 1-D gather).  ELL carries the
 // Hiptmair smoother's D, D^T and auxiliary operator on the Maxwell lane.
 // Layout as the port's EllMatrix: idx (n, k) int32 and val (n, k)
-// row-major, padding entries at column 0 with value 0.  Sums accumulate
-// in the value dtype (f32 or f64), as the XLA einsum of ell_matvec does;
-// a column index outside [0, m) reads 0.
+// row-major, padding entries at column 0 with value 0.  (values, x) ->
+// y: (f32, f32) -> f32 and (f64, f64) -> f64, summed in that dtype, as
+// the XLA einsum of ell_matvec does; (bf16, bf16) -> bf16 and (bf16,
+// f32) -> f32, summed in f32 as the port's DIA kernels sum bf16 tables
+// (the bf16 cycle of the high-order lane applies a bf16 ELL A0).  A
+// column index outside [0, m) reads 0.
 //
 // Bound on Hopper: device-memory bytes (idx + val once, x, y; two flops
 // per entry), but the Maxwell lane's operators are launch-sized: D0
@@ -36,16 +39,16 @@
 
 #include "row_spmv.cuh"
 
-template <typename T, int S>
+template <typename TV, typename TX, typename TY, int S>
 __global__ void __launch_bounds__(kThreads)
-ell_spmv_kernel(const int* __restrict__ idx, const T* __restrict__ val,
-                const T* __restrict__ x, T* __restrict__ y, int n, int k,
+ell_spmv_kernel(const int* __restrict__ idx, const TV* __restrict__ val,
+                const TX* __restrict__ x, TY* __restrict__ y, int n, int k,
                 int m, int lg) {
-    row_group_spmv<1, S, typename AccOf<T>::type>(
+    row_group_spmv<1, S, typename AccOf<TV>::type>(
         EllRows{k}, idx, val, x, y, n, m, lg);
 }
 
-template <typename T>
+template <typename TV, typename TX, typename TY>
 static int launch(const void* idx, const void* val, const void* x, void* y,
                   int n, int k, int m, int lanes, int slots,
                   cudaStream_t st) {
@@ -53,36 +56,44 @@ static int launch(const void* idx, const void* val, const void* x, void* y,
     const long long threads = (long long)n << lg;
     const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
     const int* i = (const int*)idx;
-    const T *v = (const T*)val, *xs = (const T*)x;
-    T* ys = (T*)y;
+    const TV* v = (const TV*)val;
+    const TX* xs = (const TX*)x;
+    TY* ys = (TY*)y;
     if (slots == 1)
-        ell_spmv_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
+        ell_spmv_kernel<TV, TX, TY, 1><<<blocks, kThreads, 0, st>>>(
             i, v, xs, ys, n, k, m, lg);
     else if (slots == 2)
-        ell_spmv_kernel<T, 2><<<blocks, kThreads, 0, st>>>(
+        ell_spmv_kernel<TV, TX, TY, 2><<<blocks, kThreads, 0, st>>>(
             i, v, xs, ys, n, k, m, lg);
     else
-        ell_spmv_kernel<T, 4><<<blocks, kThreads, 0, st>>>(
+        ell_spmv_kernel<TV, TX, TY, 4><<<blocks, kThreads, 0, st>>>(
             i, v, xs, ys, n, k, m, lg);
     return (int)cudaGetLastError();
 }
 
-// lanes G (a power of two, 1 to 32) and slots S (1, 2 or 4) from
-// hopper_kernels.ell_launch_plan; n * k < 2^31
-extern "C" int ell_spmv_launch(int dtype, const void* idx, const void* val,
-                               const void* x, void* y, int n, int k, int m,
-                               int lanes, int slots, void* stream) {
+// (values, x) dtype codes as above; lanes G (a power of two, 1 to 32) and
+// slots S (1, 2 or 4) from hopper_kernels.ell_launch_plan; n * k < 2^31
+extern "C" int ell_spmv_launch(int vdt, int xdt, const void* idx,
+                               const void* val, const void* x, void* y,
+                               int n, int k, int m, int lanes, int slots,
+                               void* stream) {
     if (n < 0 || k < 1 || m < 0 || (long long)n * k >= (1LL << 31)
         || !pow2_in(lanes, 1, 32) || !pow2_in(slots, 1, 4))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    switch (dtype) {
-        case DT_F32:
-            return launch<float>(idx, val, x, y, n, k, m, lanes, slots, st);
-        case DT_F64:
-            return launch<double>(idx, val, x, y, n, k, m, lanes, slots, st);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    typedef __nv_bfloat16 bf16;
+    if (vdt == DT_F32 && xdt == DT_F32)
+        return launch<float, float, float>(idx, val, x, y, n, k, m, lanes,
+                                           slots, st);
+    if (vdt == DT_F64 && xdt == DT_F64)
+        return launch<double, double, double>(idx, val, x, y, n, k, m,
+                                              lanes, slots, st);
+    if (vdt == DT_BF16 && xdt == DT_BF16)
+        return launch<bf16, bf16, bf16>(idx, val, x, y, n, k, m, lanes,
+                                        slots, st);
+    if (vdt == DT_BF16 && xdt == DT_F32)
+        return launch<bf16, float, float>(idx, val, x, y, n, k, m, lanes,
+                                          slots, st);
+    return (int)cudaErrorInvalidValue;
 }

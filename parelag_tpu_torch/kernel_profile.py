@@ -10,6 +10,7 @@
     python -m parelag_tpu_torch.kernel_profile --darcy 64
     python -m parelag_tpu_torch.kernel_profile --library 5
     python -m parelag_tpu_torch.kernel_profile --spe10 30,55,21
+    python -m parelag_tpu_torch.kernel_profile --ho 16
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -75,6 +76,15 @@ AMS).
 --spe10 NX,NY,NZ times the kernel of every operator of every level's f32
 SA hierarchy of the generic SPE10 lane (darcy_lane.lane_spe10), with its
 library call and bound.
+
+--ho NX profiles the high-order lane at NX^3, p = 2 (ho_lane: the
+setup with pass 2 on the card, then a memory row for its f32 hierarchy
+and bf16 cast): a solve row for the f32 PCG with the bf16 V-cycle (wall
+against device busy, the idle share, device time by hand kernel and by
+torch kernel), and kernel rows for A0 (f32 ELL; bf16 ELL with bf16 and
+with f32 x) and the bf16 BCSR P0 / R0 (bf16 and f32 x), each with
+bound_us counted from the nonzeros and bound_slots_us from the format as
+stored (the ELL table's padded slots).
 
 --darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
 (darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
@@ -652,6 +662,45 @@ def _spe10(cells, dev, emit):
                 emit(row)
 
 
+def _ho(nx, dev, emit):
+    """The --ho rows (see the module docstring)."""
+    from parelag_tpu_torch import ho_lane
+    hk.load()
+    seqs, A, b, split = ho_lane.build_ho(nx, ho_lane.P, dev)
+    emit(dict(ho_setup=f"{nx}^3 p={ho_lane.P}", ndofs=A.shape[0],
+              nnz=A.nnz, **split))
+    mem, (H, Hb, _, _) = _memory_row(
+        f"ho_p{ho_lane.P} {nx}^3",
+        lambda: ho_lane.build_solver(seqs, A, dev), dev)
+    emit(mem)
+    bt = torch.as_tensor(b.astype(np.float32)).to(dev)
+    emit(_solve_row(f"ho_p{ho_lane.P} {nx}^3 f32 PCG, bf16 V(2,2)",
+                    lambda: ho_lane.solve(H, Hb, bt)))
+    rng = np.random.RandomState(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    lvl, lvlb = H.levels[0], Hb.levels[0]
+    for label, M, xdts in (("A0", lvl.A, (f32,)), ("A0", lvlb.A, (bf16, f32)),
+                           ("P0", lvlb.P, (bf16, f32)),
+                           ("R0", lvlb.R, (bf16, f32))):
+        name = KERNEL_OF[type(M)]
+        n, m = M.shape
+        nnz = _nnz(M)
+        stored = sum(t.numel() * t.element_size() for t in M.buffers())
+        for xdt in xdts:
+            v = torch.as_tensor(rng.randn(m).astype(np.float32)).to(xdt)
+            v = v.to(dev)
+            io = m * v.element_size() + n * torch.empty(
+                (), dtype=torch.promote_types(M.dtype, xdt)).element_size()
+            row = _timed_row(name, f"ho {label} {M.dtype} values {xdt} x "
+                             f"{n}x{m} nnz={nnz}", M, v)
+            row.update(
+                nnz=nnz, stored_bytes=stored,
+                bound_us=_bound_us(nnz * (M.values.element_size() + 4)
+                                   + 4 * (n + 1) + io, 2 * nnz),
+                bound_slots_us=(stored + io) / PEAK_BYTES * 1e6)
+            emit(row)
+
+
 def _tune_ell(P0, Hm, dev, slots):
     """The ELL variants with hopper_kernels.ELL_SLOTS set to each S in
     slots; the setting and the plan cache are restored after."""
@@ -723,6 +772,9 @@ def main(argv=None):
     ap.add_argument("--spe10", default=None,
                     help="profile only the kernels of the generic SPE10 "
                     "lane's SA hierarchies at these cells (e.g. 30,55,21)")
+    ap.add_argument("--ho", type=int, default=0,
+                    help="profile only the high-order lane at this grid "
+                    "(e.g. 16)")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
@@ -749,6 +801,9 @@ def _run(args, emit):
         return
     if args.spe10:
         _spe10(tuple(int(c) for c in args.spe10.split(",")), dev, emit)
+        return
+    if args.ho:
+        _ho(args.ho, dev, emit)
         return
     if args.ablate:
         # a build of its own: the flags are part of the library's hash

@@ -15,8 +15,7 @@ solutions to the fine grid and report the reference's printed quantities:
 
 A copy of parelag_tpu/models/upscaling.py.  build_hierarchy also takes
 backend= and device= (pass 2 of every coarsen() on that backend, as
-generic_lane.build_h1 sets it), and refuses feorder > 0 until the
-high-order spaces are ported (ROADMAP A11).
+generic_lane.build_h1 sets it).
 """
 
 from dataclasses import dataclass
@@ -172,10 +171,13 @@ def build_hierarchy(nref_parallel=1, n_levels=None, unstructured=False,
 
     log_mark = DeRhamSequenceFE.log_mark()
     with TimeManager.add_timer("DeRhamSequence Construction: level 0"):
-        if feorder > 0:
-            raise NotImplementedError(
-                "feorder > 0: the high-order FE spaces are not ported "
-                "yet (ROADMAP A11)")
+        if feorder > 0 and mesh.kind == "hex":
+            from parelag_tpu_torch.amge.fespace3d_ho import DeRhamSequence3DFE_HO
+            seqs = [DeRhamSequence3DFE_HO(topos[0], mesh, feorder)]
+        elif feorder > 0:
+            from parelag_tpu_torch.amge.fespace3d_tet_ho import (
+                DeRhamSequenceTetFE_HO)
+            seqs = [DeRhamSequenceTetFE_HO(topos[0], mesh, feorder)]
         else:
             seqs = [DeRhamSequenceFE(topos[0], mesh)]
         if coeff_hooks:

@@ -134,7 +134,7 @@ def load():
                              vp],
         "bcsr_spmv_multirhs_launch": [i32, i32, vp, vp, vp, vp, vp, i32,
                                       i32, i32, vp],
-        "ell_spmv_launch": [i32, vp, vp, vp, vp, i32, i32, i32, i32,
+        "ell_spmv_launch": [i32, i32, vp, vp, vp, vp, i32, i32, i32, i32,
                             i32, vp],
     }
     for name, argtypes in signatures.items():

@@ -72,8 +72,8 @@ def _promoted(*ts):
 class EllMatrix(nn.Module):
     """ELL layout: indices (n, k) int32, values (n, k); padding entries
     point at column 0 with value 0.  The matvec is hopper_kernels.
-    ell_spmv: the CUDA kernel on the card (1-D x, f32 or f64), its plain
-    gather + row reduce on the CPU."""
+    ell_spmv: the CUDA kernel on the card (1-D x; f32, f64, bf16, or
+    bf16 values with f32 x), its plain gather + row reduce on the CPU."""
 
     def __init__(self, indices, values, shape):
         super().__init__()

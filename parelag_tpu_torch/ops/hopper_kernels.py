@@ -578,11 +578,18 @@ def ell_spmv_plain(indices, values, x):
     return torch.einsum("nk,nk->n", values.to(dt), g)
 
 
+# (values, x) dtype pairs csrc/ell.cu is instantiated for: y in the
+# promoted dtype, summed in f32 (f64 for f64)
+_ELL_PAIRS = {
+    (torch.float32, torch.float32), (torch.float64, torch.float64),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)}
+
+
 def ell_spmv(indices, values, x):
     """ELL SpMV (csrc/ell.cu on CUDA, cut by ell_launch_plan): indices
     (n, k) int32, values (n, k), x (m,).  On CUDA x is one-dimensional,
-    values and x are both f32 or both f64 (the sum accumulates in that
-    dtype) and n * k < 2^31."""
+    (values, x) is f32/f32, f64/f64, bf16/bf16 or bf16/f32 (y in the
+    promoted dtype, the sum in f32, f64 for f64) and n * k < 2^31."""
     if _on_cpu(indices, values, x):
         return ell_spmv_plain(indices, values, x)
     name = "ell_spmv"
@@ -590,18 +597,19 @@ def ell_spmv(indices, values, x):
     _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
     _check(name, indices.shape == (n, k) and indices.dtype == torch.int32,
            f"indices {tuple(indices.shape)} {indices.dtype}")
-    _check(name, values.dtype == x.dtype
-           and values.dtype in (torch.float32, torch.float64),
-           f"dtypes values={values.dtype} x={x.dtype} (need equal f32 or "
-           "f64)")
+    _check(name, (values.dtype, x.dtype) in _ELL_PAIRS,
+           f"dtypes values={values.dtype} x={x.dtype} (need f32/f32, "
+           "f64/f64, bf16/bf16 or bf16/f32)")
     _check(name, all(t.is_contiguous() for t in (indices, values, x)),
            "tensors must be contiguous")
     _check(name, n * k < 2 ** 31, f"{n} x {k} entries (need < 2^31)")
     plan = ell_launch_plan(n, k)
     lib = load()
-    y = torch.empty(n, dtype=values.dtype, device=x.device)
+    y = torch.empty(n, dtype=torch.promote_types(values.dtype, x.dtype),
+                    device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.ell_spmv_launch(DTYPE_CODES[values.dtype], _ptr(indices),
+        rc = lib.ell_spmv_launch(DTYPE_CODES[values.dtype],
+                                 DTYPE_CODES[x.dtype], _ptr(indices),
                                  _ptr(values), _ptr(x), _ptr(y), n, k,
                                  x.shape[0], plan.lanes, plan.slots,
                                  _stream(x))

@@ -9,8 +9,8 @@ fix, smoothers per level (l1-Jacobi, or Hiptmair for forms with a
 potential space), dense direct solve at the coarsest level.  Each
 smoother is built from its level's operator in the hierarchy's dtype, as
 the JAX package's are on the TPU (the host RAP of an f32 A and an f64 P
-is f64).  Not ported yet: the Chebyshev smoother and the RCM reordering
-(ROADMAP A3).
+is f64).  reorder="rcm" permutes every level (build_hierarchy) and
+amge_pcg_solve solves in the permuted space.
 """
 
 import numpy as np
@@ -33,11 +33,13 @@ def build_amge_hierarchy(seqs, form, A_fine, smoother="l1jacobi",
 
     smoother: 'l1jacobi' | 'chebyshev' | 'hiptmair' (Hiptmair uses the
     potential-space derivative D[form-1] coarsened per level, the
-    reference HiptmairSmootherFactory pattern); reorder='rcm' is refused
-    until it is ported."""
+    reference HiptmairSmootherFactory pattern); reorder='rcm' permutes
+    every level (not with Hiptmair: its auxiliary derivative is not
+    permuted)."""
     device = resolve_device(device)
-    if reorder is not None:
-        raise ValueError(f"reorder={reorder!r} is not ported yet")
+    if smoother == "hiptmair" and reorder:
+        raise ValueError("reorder folds into A/P only; the Hiptmair aux "
+                         "derivative is not permuted")
     n_lev = len(seqs)
     A_levels = [sp.csr_matrix(A_fine)]
     P_levels = []
@@ -59,7 +61,7 @@ def build_amge_hierarchy(seqs, form, A_fine, smoother="l1jacobi",
         raise ValueError(smoother)
 
     H = build_hierarchy(A_levels, P_levels, factory, mu=mu, dtype=dtype,
-                        matrix_format=matrix_format,
+                        matrix_format=matrix_format, reorder=reorder,
                         transfer_dtype=transfer_dtype, device=device)
     return H, A_levels, P_levels
 
@@ -85,10 +87,18 @@ def amge_pcg_solve(H, A, b, rtol=1e-6, atol=1e-12, maxiter=500,
     """PCG with one MG cycle of H as preconditioner (the reference's
     'Krylov + AMGe preconditioner' composition, CreateXFormParameterList)
     on the device operator A (e.g. H.levels[0].A), both on `device`
-    (None: the card); b (n,) numpy or tensor, taken in A's dtype.
-    Returns (x as numpy, (iterations, r.z))."""
+    (None: the card); b (n,) numpy or tensor, taken in A's dtype.  A
+    reordered H (H.perm) solves in its permuted space on its own level-0
+    operator (A is then not used): b[perm] in, x[iperm] out.  Returns
+    (x as numpy, (iterations, r.z))."""
     device = resolve_device(device)
+    if H.perm is not None:
+        A = H.levels[0].A
     bt = torch.as_tensor(b).to(device=device, dtype=A.dtype)
+    if H.perm is not None:
+        bt = bt[H.perm]
     x, info = pcg(A.matvec, bt, precond=H.apply, rtol=rtol, atol=atol,
                   maxiter=maxiter)
+    if H.iperm is not None:
+        x = x[H.iperm]
     return x.cpu().numpy(), info

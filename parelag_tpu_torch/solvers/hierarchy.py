@@ -6,8 +6,9 @@ restrict -> recurse (mu times) -> interpolate + correct -> post-smooth;
 the coarsest level applies a dense inverse.  Levels are nn.Modules with
 registered buffers, so `Hierarchy.cast(torch.bfloat16)` rides
 `Module.to(dtype)` (floating buffers only) and keeps the coarse inverse
-in full precision.  The RCM `reorder` option of the JAX
-build_hierarchy is not ported.
+in full precision.  build_hierarchy(reorder="rcm") permutes every level
+by reverse Cuthill-McKee and keeps level 0's permutation as the
+Hierarchy's perm / iperm index buffers.
 """
 
 import copy
@@ -36,10 +37,16 @@ class Level(nn.Module):
 
 
 class Hierarchy(nn.Module):
-    def __init__(self, levels, mu=1):
+    """Levels finest first.  perm / iperm (int64 index tensors, or None):
+    level 0's dof reordering (RCM); the hierarchy then works in permuted
+    space, b' = b[perm] in and x = x'[iperm] out (amge_pcg_solve)."""
+
+    def __init__(self, levels, mu=1, perm=None, iperm=None):
         super().__init__()
         self.levels = nn.ModuleList(levels)
         self.mu = int(mu)            # 1 = V-cycle, 2 = W-cycle
+        self.register_buffer("perm", perm)
+        self.register_buffer("iperm", iperm)
 
     def cycle(self, b, x=None):
         if not b.is_floating_point():
@@ -116,16 +123,37 @@ def transfer_format(device, matrix_format="auto"):
     return "bcsr"
 
 
+def rcm_permute(A_scipy_levels, P_scipy_levels):
+    """Reverse Cuthill-McKee on every level (the JAX build_hierarchy's
+    reorder="rcm"): returns the permuted A_l[p_l][:, p_l], the permuted
+    P_l[p_l][:, p_{l+1}] and the permutations p_l."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    perms, A_out = [], []
+    for A in A_scipy_levels:
+        A = sp.csr_matrix(A)
+        p = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+        perms.append(p)
+        A_out.append(A[p][:, p])
+    P_out = [sp.csr_matrix(P)[perms[l]][:, perms[l + 1]]
+             for l, P in enumerate(P_scipy_levels)]
+    return A_out, P_out, perms
+
+
 def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
                     mu=1, dtype=np.float64, matrix_format="auto",
-                    transfer_dtype=None, device=None) -> Hierarchy:
+                    reorder=None, transfer_dtype=None,
+                    device=None) -> Hierarchy:
     """Assemble a device Hierarchy from host sparse matrices.
 
     A_scipy_levels: [A_0, ..., A_L]; P_scipy_levels: [P_0, ..., P_{L-1}];
-    smoother_factory(A_scipy, level) -> smoother module.  The transfer
-    format is transfer_format's: BCSR on the card, ELL on the CPU.
-    device=None builds on the card."""
+    smoother_factory(A_scipy, level) -> smoother module (given the
+    permuted A under reorder).  The transfer format is
+    transfer_format's: BCSR on the card, ELL on the CPU.
+    reorder="rcm": rcm_permute every level; the Hierarchy carries level
+    0's perm / iperm.  device=None builds on the card."""
     device = resolve_device(device)
+    if reorder not in (None, "rcm"):
+        raise ValueError(f"reorder={reorder!r} (need None or 'rcm')")
     on_cpu = device.type == "cpu"
 
     def to_dev_transfer(M):
@@ -161,6 +189,15 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
                 return B
         return from_scipy(M, dtype=dtype, device=device)
 
+    perm0 = iperm0 = None
+    if reorder == "rcm":
+        A_scipy_levels, P_scipy_levels, perms = rcm_permute(
+            A_scipy_levels, P_scipy_levels)
+        inv = np.empty_like(perms[0])
+        inv[perms[0]] = np.arange(perms[0].size)
+        perm0 = torch.as_tensor(perms[0].astype(np.int64)).to(device)
+        iperm0 = torch.as_tensor(inv.astype(np.int64)).to(device)
+
     n_lev = len(A_scipy_levels)
     levels = []
     for l in range(n_lev):
@@ -183,7 +220,7 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
             levels.append(Level(
                 A=to_dev(A), P=to_dev_transfer(P),
                 R=to_dev_transfer(P.T.tocsr()), pre=sm, post=sm))
-    return Hierarchy(levels, mu)
+    return Hierarchy(levels, mu, perm0, iperm0)
 
 
 def rap(A, P):

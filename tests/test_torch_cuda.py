@@ -319,6 +319,27 @@ def test_ell_kernel_matches_plain(card, dtype):
         <= LIMIT[dtype] * np.abs(ref).max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [6, 343])
+def test_ell_kernel_bf16(card, k, xdt):
+    """bf16 values with bf16 or f32 x (the bf16 cycle's pairs), summed in
+    f32, y in the promoted dtype: within 1e-2 of the plain version at
+    the high-order A0's k = 343 (G = 16 lanes, S = 4 slots, the rest of
+    each row looped) and at a small k."""
+    n = 40_001 if k == 343 else 100_001
+    idx, val, x = (t.to(card) for t in _ell_operand(n, 20_001, k,
+                                                    torch.float32, seed=k))
+    val, x = val.to(torch.bfloat16), x.to(xdt)
+    before = hk.LAUNCHES["ell_spmv"]
+    y = hk.ell_spmv(idx, val, x)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["ell_spmv"] == before + 1
+    assert y.dtype == torch.promote_types(torch.bfloat16, xdt)
+    assert _rel(y, hk.ell_spmv_plain(idx, val, x)) <= LIMIT[torch.bfloat16]
+    assert not y[(val == 0).all(1)].any()
+
+
 def _ell_operand(n, m, k, dtype, seed):
     """(n, k) ELL indices and values as from_scipy lays them out (row r
     holds r % (k + 1) entries, every 7th row none, padding at column 0
@@ -367,9 +388,18 @@ def test_new_kernels_reject_what_they_do_not_take(card):
     E = from_scipy(_stencil(1000), dtype=np.float32, device=card)
     with pytest.raises(ValueError, match="one-dimensional"):
         E @ torch.ones(1000, 2, device=card)
+    # ELL takes f32/f32, f64/f64, bf16/bf16 and bf16/f32 only
     Eb = from_scipy(_stencil(1000), dtype=torch.bfloat16, device=card)
+    for xdt in (torch.float64, torch.float16):
+        with pytest.raises(ValueError, match="dtypes"):
+            Eb @ torch.ones(1000, device=card, dtype=xdt)
     with pytest.raises(ValueError, match="dtypes"):
-        Eb @ torch.ones(1000, device=card, dtype=torch.bfloat16)
+        E @ torch.ones(1000, device=card, dtype=torch.bfloat16)
+    Eh = from_scipy(_stencil(1000), dtype=torch.float16, device=card)
+    with pytest.raises(ValueError, match="dtypes"):
+        Eh @ torch.ones(1000, device=card, dtype=torch.float16)
+    with pytest.raises(ValueError, match="one-dimensional"):
+        Eb @ torch.ones(1000, 2, device=card, dtype=torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -708,3 +738,87 @@ def test_bcsr_spmv_f64_matches_plain(card, n, k):
     yp = hk.bcsr_spmv_plain(B.row_ptr, B.col_idx, B.values, x, n)
     assert yk.dtype == torch.float64
     assert _rel(yk, yp) <= LIMIT[torch.float64]
+
+
+@pytest.mark.cuda
+def test_ho_operators_on_card_match_plain(card):
+    """The high-order lane at 4^3, p = 2, on the card: every operator its
+    f32 hierarchy and bf16 preconditioner apply, in the format the build
+    gives it (A0 BCSR here, ELL at 16^3; BCSR transfers), kernel against
+    plain; then one preconditioned solve converges with both kernels
+    launched."""
+    from parelag_tpu_torch import ho_lane
+    from parelag_tpu_torch.kernel_profile import KERNEL_OF
+    from parelag_tpu_torch.solvers.hierarchy import level_operators
+    seqs, A, b, _ = ho_lane.build_ho(4, 2, card)
+    H, Hb, _, _ = ho_lane.build_solver(seqs, A, card)
+    assert [type(l.P).__name__ for l in Hb.levels[:-1]] == ["BcsrMatrix"]
+    rng = np.random.RandomState(11)
+    for label, M in level_operators(H) + level_operators(Hb):
+        name = KERNEL_OF[type(M)]
+        for xdt in {M.dtype, torch.float32}:
+            x = torch.as_tensor(rng.randn(M.shape[1])).to(xdt).to(card)
+            before = hk.LAUNCHES[name]
+            y = M @ x
+            torch.cuda.synchronize()
+            assert hk.LAUNCHES[name] == before + 1, (label, xdt)
+            if name == "ell_spmv":
+                yp = hk.ell_spmv_plain(M.indices, M.values, x)
+            else:
+                yp = hk.bcsr_spmv_plain(M.row_ptr, M.col_idx, M.values, x,
+                                        M.shape[0])
+            assert _rel(y, yp) <= LIMIT[y.dtype], (label, M.dtype, xdt)
+    before = dict(hk.LAUNCHES)
+    x, (it, _) = ho_lane.solve(H, Hb, torch.as_tensor(
+        b.astype(np.float32)).to(card))
+    assert int(it) < ho_lane.MAXITER
+    assert ho_lane.rel_res(A, b, x) <= 10 * ho_lane.RTOL
+    assert hk.LAUNCHES["bcsr_spmv"] > before["bcsr_spmv"]
+
+
+@pytest.mark.cuda
+def test_coarsen_darcy_on_card_matches_cpu(card):
+    """coarsen_darcy (the L2 and Hdiv stages) on a heterogeneous 8^3
+    level on the card against the CPU, f64, within 1e-12; its P2 and P3
+    equal."""
+    from parelag_tpu_torch.amge import structured as stc
+    rng = np.random.default_rng(7)
+    shape = (8, 8, 8)
+    per_ae = 10.0 ** rng.uniform(-2, 2, size=64)
+    cc = stc.children_cells((4, 4, 4))      # the fine cells of each AE
+    coeff = np.empty(512)
+    coeff[cc] = per_ae[:, None]
+    outs = []
+    for d in (card, torch.device("cpu")):
+        c, o = stc.coarsen_darcy(stc.fine_level(shape, coeff=coeff,
+                                                device=d))
+        outs.append((c, o, stc.materialize_P_darcy(o, shape)))
+    (lg, og, Pg), (lc, oc, Pc) = outs
+    for f in ("ptr3", "f3", "ptr2", "f2", "pint2", "d2c"):
+        assert _rel(getattr(og, f).cpu(), getattr(oc, f)) <= 1e-12, f
+    for f in ("m03", "m12", "m02", "d2", "t3", "t2"):
+        assert _rel(getattr(lg, f).cpu(), getattr(lc, f)) <= 1e-12, f
+    for a, b in zip(Pg, Pc):
+        assert abs(a - b).max() <= 1e-12 * abs(b).max()
+
+
+@pytest.mark.cuda
+def test_rcm_hierarchy_on_card(card):
+    """build_amge_hierarchy(reorder='rcm') on the card: perm / iperm on
+    the card, amge_pcg_solve in the permuted space with the same
+    iterations (within one) and x (1e-8) as the unpermuted f64 solve."""
+    from parelag_tpu_torch import ho_lane
+    from parelag_tpu_torch.solvers.amge_solver import (
+        amge_pcg_solve, build_amge_hierarchy)
+    seqs, A, b, _ = ho_lane.build_ho(4, 1, card)
+    out = []
+    for reorder in (None, "rcm"):
+        H, _, _ = build_amge_hierarchy(seqs, 0, A, reorder=reorder,
+                                       device=card)
+        out.append((H, amge_pcg_solve(H, H.levels[0].A, b, rtol=1e-10,
+                                      device=card)))
+    (H0, (x0, (it0, _))), (Hr, (xr, (itr, _))) = out
+    assert Hr.perm.is_cuda and Hr.iperm.is_cuda and H0.perm is None
+    assert abs(int(itr) - int(it0)) <= 1
+    assert np.abs(xr - x0).max() <= 1e-8 * np.abs(x0).max()
+    assert np.linalg.norm(b - A @ xr) <= 1e-8 * np.linalg.norm(b)

@@ -94,8 +94,8 @@ def _entry_points():
     one, on tiny inputs (name -> thunk)."""
     import scipy.sparse as sp
     from parelag_tpu_torch import (
-        convert, darcy_lane, entry, flagship, generic_lane, library_lane,
-        maxwell_lane, spectral_lane)
+        convert, darcy_lane, entry, flagship, generic_lane, ho_lane,
+        library_lane, maxwell_lane, spectral_lane)
     from parelag_tpu_torch.amge import (
         spectral, structured, structured_spectral, structured_spectral_ml)
     from parelag_tpu_torch.amge.hybridization import HybridHdivL2
@@ -192,6 +192,9 @@ def _entry_points():
         "maxwell.upscaling_maxwell":
             lambda: maxwell.upscaling_maxwell(nref_parallel=1),
         "saddle_extra.MLDivFree": lambda: saddle_extra.MLDivFree([]),
+        "ho_lane.build_ho": lambda: ho_lane.build_ho(2, 1),
+        "ho_lane.build_solver": lambda: ho_lane.build_solver([], I),
+        "ho_lane.lane_ho": lambda: ho_lane.lane_ho(2, 1),
         "upscaling.build_hierarchy(backend='device')":
             lambda: upscaling.build_hierarchy(nref_parallel=1,
                                               backend="device"),

@@ -10,7 +10,9 @@ upscaling_maxwell with the AMGe solver within 1e-8 relative of the JAX
 run (both f64); the four copied host models equal the JAX outputs
 within 1e-10 relative (the same numpy code run again).  The copies are
 checked byte for byte against their sources (upscaling.py after
-UPSCALING_EDITS, maxwell.py after MAXWELL_EDITS)."""
+UPSCALING_EDITS, maxwell.py after MAXWELL_EDITS, and the engine's
+amge/sequence.py and amge/fespace3d_ho.py after SEQUENCE_EDITS and
+HO_EDITS)."""
 
 import os
 import re
@@ -80,8 +82,15 @@ def test_upscaling_2form_amge_goldens():
 
 
 def test_high_order_is_refused():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tup.build_hierarchy(nref_parallel=0, feorder=1)
+    """(Named when feorder > 0 was refused; the high-order spaces are
+    ported now.)  feorder=1 builds the port's high-order hex sequence
+    with the JAX package's dims on every level."""
+    from parelag_tpu.models.upscaling import build_hierarchy as jbuild
+    _, _, st = tup.build_hierarchy(nref_parallel=0, feorder=1)
+    _, _, sj = jbuild(nref_parallel=0, feorder=1)
+    assert type(st[0]).__name__ == "DeRhamSequence3DFE_HO"
+    assert [[s.dof[j].ndofs for j in range(4)] for s in st] == \
+        [[s.dof[j].ndofs for j in range(4)] for s in sj]
 
 
 def test_device_backend_chain_matches_the_host_one():
@@ -153,7 +162,7 @@ def _rewritten(text):
 
 
 # the documented edits of the port's models/upscaling.py: build_hierarchy
-# takes backend= and device= for pass 2 and refuses feorder > 0
+# takes backend= and device= for pass 2
 UPSCALING_EDITS = [
     ("(ReduceAndOutputUpscalingErrors, src/utilities/UpscalingPieces.cpp:"
      "182-253).\n\"\"\"",
@@ -162,8 +171,7 @@ UPSCALING_EDITS = [
      "A copy of parelag_tpu/models/upscaling.py.  build_hierarchy also "
      "takes\n"
      "backend= and device= (pass 2 of every coarsen() on that backend, as\n"
-     "generic_lane.build_h1 sets it), and refuses feorder > 0 until the\n"
-     "high-order spaces are ported (ROADMAP A11).\n\"\"\""),
+     "generic_lane.build_h1 sets it).\n\"\"\""),
     ("from parelag_tpu_torch.mesh.mesh import hex_grid_mesh\n",
      "from parelag_tpu_torch import resolve_device\n"
      "from parelag_tpu_torch.mesh.mesh import hex_grid_mesh\n"),
@@ -175,18 +183,6 @@ UPSCALING_EDITS = [
      "    backend ('host' | 'device' | None: the sequence's default) is set\n"
      "    with device (None: the card) on each level before its coarsen()."
      "\"\"\"\n"),
-    ("        if feorder > 0 and mesh.kind == \"hex\":\n"
-     "            from parelag_tpu_torch.amge.fespace3d_ho import "
-     "DeRhamSequence3DFE_HO\n"
-     "            seqs = [DeRhamSequence3DFE_HO(topos[0], mesh, feorder)]\n"
-     "        elif feorder > 0:\n"
-     "            from parelag_tpu_torch.amge.fespace3d_tet_ho import (\n"
-     "                DeRhamSequenceTetFE_HO)\n"
-     "            seqs = [DeRhamSequenceTetFE_HO(topos[0], mesh, feorder)]\n",
-     "        if feorder > 0:\n"
-     "            raise NotImplementedError(\n"
-     "                \"feorder > 0: the high-order FE spaces are not ported \"\n"
-     "                \"yet (ROADMAP A11)\")\n"),
     ("    for il in range(n_levels - 1):\n"
      "        with TimeManager.add_timer(\n"
      "                f\"DeRhamSequence Construction: level {il + 1}\"):\n",
@@ -225,9 +221,73 @@ MAXWELL_EDITS = [
 ]
 
 
+# the documented edits of the port's amge/sequence.py: pass 2's torch
+# device beside solve_backend, and Cst as two batched GEMMs (the
+# three-operand einsum shares its batch index across all operands and
+# falls back to numpy's c_einsum: 42.1 s of a 53.8 s coarsen() at 6^3)
+SEQUENCE_EDITS = [
+    ("        self.solve_backend = \"auto\"\n",
+     "        self.solve_backend = \"auto\"\n"
+     "        # the torch device of the 'device' backend (None: the card)\n"
+     "        self.solve_device = None\n"),
+    ("                Cst = np.einsum(\"bki,bkl,blj->bij\", D2i, W2st, D2i,\n"
+     "                                optimize=True)\n",
+     "                # two batched GEMMs: the einsum's batch index is shared\n"
+     "                # by all three operands, which keeps it off BLAS\n"
+     "                Cst = np.matmul(np.matmul(D2i.transpose(0, 2, 1), "
+     "W2st),\n"
+     "                                D2i)\n"),
+    ("                          skip=[not g[\"do_solve\"] for g in groups])\n",
+     "                          skip=[not g[\"do_solve\"] for g in groups],\n"
+     "                          device=self.solve_device)\n"),
+]
+
+# the documented edit of the port's amge/fespace3d_ho.py: _metric_mass
+# as one batched GEMM (nine broadcast temporaries took 9.3 s of the 6^3
+# fine space)
+HO_EDITS = [
+    ("  geometry in M.\n\"\"\"\n",
+     "  geometry in M.\n\n"
+     "A copy of parelag_tpu/amge/fespace3d_ho.py with one edit: "
+     "_metric_mass\n"
+     "contracts in one batched GEMM instead of nine broadcast products.\n"
+     "\"\"\"\n"),
+    ("        as 9 batched GEMMs over the (a,b) pairs.\"\"\"\n"
+     "        ne = G.shape[0]\n"
+     "        ndof = E.shape[0]\n"
+     "        M = np.zeros((ne, ndof, ndof))\n"
+     "        for a in range(3):\n"
+     "            for b in range(3):\n"
+     "                Wab = w * G[:, :, a, b]                   # (ne, nq)\n"
+     "                # (ne, ndof, nq) @ (nq, ndof)\n"
+     "                M += (E[None, :, :, a] * Wab[:, None, :]) @ "
+     "E[:, :, b].T\n",
+     "        as one batched GEMM over the flattened (q, b) axis:\n"
+     "        T[n,i,(q,b)] = sum_a E[i,q,a] w[n,q] G[n,q,a,b], then T @ "
+     "E^T,\n"
+     "        in chunks of cells that bound T to ~2^24 entries.\"\"\"\n"
+     "        ne = G.shape[0]\n"
+     "        ndof, nq = E.shape[0], E.shape[1]\n"
+     "        WG = w[:, :, None, None] * G                      # (ne, nq, 3, "
+     "3)\n"
+     "        Ef = E.reshape(ndof, nq * 3)\n"
+     "        M = np.empty((ne, ndof, ndof))\n"
+     "        step = max(1, (1 << 24) // max(ndof * nq * 3, 1))\n"
+     "        for s in range(0, ne, step):\n"
+     "            W = WG[s:s + step]\n"
+     "            T = sum(E[None, :, :, a, None] * W[:, None, :, a, :]\n"
+     "                    for a in range(3))                    # (n, ndof, "
+     "nq, 3)\n"
+     "            M[s:s + step] = T.reshape(-1, ndof, nq * 3) @ Ef.T\n"),
+]
+
+
 @pytest.mark.parametrize("path,edits", [
     ("models/upscaling.py", UPSCALING_EDITS),
-    ("models/maxwell.py", MAXWELL_EDITS)], ids=["upscaling", "maxwell"])
+    ("models/maxwell.py", MAXWELL_EDITS),
+    ("amge/sequence.py", SEQUENCE_EDITS),
+    ("amge/fespace3d_ho.py", HO_EDITS)],
+    ids=["upscaling", "maxwell", "sequence", "fespace3d_ho"])
 def test_copied_driver_equals_its_source(path, edits):
     with open(os.path.join(ROOT, "parelag_tpu", path)) as f:
         src = _rewritten(f.read())

@@ -179,3 +179,57 @@ def test_coarse_guard_and_rap():
     assert abs(th.rap(A, P) - jh.rap(A, P)).max() == 0.0
     with pytest.raises(ValueError, match="gauss_seidel"):
         tfactory(dict(smoother="gauss_seidel"))
+
+
+@pytest.fixture(scope="module")
+def rcm_problem():
+    """tests/test_solvers.py::test_rcm_reordered_hierarchy_solves's
+    problem: the H1 operator of the nref 1 upscaling chain, with load -1
+    on attribute 1 and Dirichlet on 2-5, on both packages' chains."""
+    out = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            from parelag_tpu.models import upscaling as up
+        else:
+            from parelag_tpu_torch.models import upscaling as up
+        _, _, seqs = up.build_hierarchy(nref_parallel=1)
+        s = seqs[0]
+        A = (s.compute_mass_operator(0)
+             + s.D[0].T @ s.compute_mass_operator(1) @ s.D[0]).tocsr()
+        b = up.boundary_rhs(s, 0, {1: -1.0})
+        marker = up.mark_dofs_on_bndr(s, 0, {2, 3, 4, 5})
+        out[side] = (seqs,) + up.eliminate_rowcols(A, b, marker,
+                                                   np.zeros(A.shape[0]))
+    return out
+
+
+def test_rcm_matches_jax(rcm_problem):
+    """build_amge_hierarchy(reorder='rcm'): the port's perm / iperm equal
+    the JAX package's, every permuted level operator and transfer agrees
+    (1e-12), and amge_pcg_solve in the permuted space gives JAX's
+    iterations (within one) and x (1e-8) at rtol 1e-10."""
+    from parelag_tpu.solvers.amge_solver import (
+        amge_pcg_solve as jsolve, build_amge_hierarchy as jbuild)
+    from parelag_tpu_torch.solvers.amge_solver import (
+        amge_pcg_solve as tsolve, build_amge_hierarchy as tbuild)
+    seqs_j, Aj, bj = rcm_problem["jax"]
+    seqs_t, At, bt = rcm_problem["port"]
+    Hj, _, _ = jbuild(seqs_j, 0, Aj, smoother="l1jacobi", reorder="rcm")
+    Ht, _, _ = tbuild(seqs_t, 0, At, smoother="l1jacobi", reorder="rcm",
+                      device="cpu")
+    np.testing.assert_array_equal(Ht.perm.numpy(), np.asarray(Hj.perm))
+    np.testing.assert_array_equal(Ht.iperm.numpy(), np.asarray(Hj.iperm))
+    Hc = convert.hierarchy_from_numpy(jax.tree_util.tree_map(np.asarray, Hj),
+                                      device="cpu")
+    np.testing.assert_array_equal(Hc.perm.numpy(), Ht.perm.numpy())
+    v = torch.as_tensor(np.random.RandomState(2).randn(At.shape[0]))
+    for lt, lc in zip(Ht.levels, Hc.levels):
+        if lt.coarse_inv is None:
+            for a, c in ((lt.A, lc.A), (lt.P, lc.P), (lt.R, lc.R)):
+                w = v[:a.shape[1]]
+                assert _rel((a @ w).numpy(), (c @ w).numpy()) < 1e-12
+    xj, (itj, _) = jsolve(Hj, None, bj, rtol=1e-10)
+    xt, (itt, _) = tsolve(Ht, None, bt, rtol=1e-10, device="cpu")
+    assert abs(int(itt) - int(itj)) <= 1, (itt, itj)
+    assert _rel(xt, np.asarray(xj)) < 1e-8
+    assert np.linalg.norm(At @ xt - bt) < 1e-7 * np.linalg.norm(bt)
