@@ -84,12 +84,14 @@
    (g-i run no hand kernel: their stages are batched torch.linalg.)
    j. the high-order lane, ho_lane.lane_ho(NX_HO, p=HO_P): the order-2
       de Rham sequence on 16^3 (117,649 H1 dofs), one 2x2x2 coarsening
-      with pass 2 on the card, the f32 hierarchy (A0 a 343-slot ELL
-      matrix, BCSR transfers) and f32 PCG with its bf16 cast as the
-      preconditioner: iterations within ITER_SLACK of the host f64
-      anchor, rel_res <= 1e-4, ell_spmv (the bf16 A0 of the cycle too)
-      and bcsr_spmv launched; then the lane at 4^3 on the card and on
-      the CPU (equal coarse dims, iterations within one);
+      with pass 2 on the card, the f32 hierarchy (A0 in BCSR since
+      hierarchy.a_format keeps no ELL table of 3.45 slots a nonzero, BCSR
+      transfers) and f32 PCG with its bf16 cast as the preconditioner:
+      iterations within ITER_SLACK of the host f64 anchor, rel_res <=
+      1e-4, A0 a BcsrMatrix in f32 and bf16, no ell_spmv and more
+      bcsr_spmv launches than the transfers and f32 matvecs account for
+      (check_ho); then the lane at 4^3 on the card and on the CPU (equal
+      coarse dims, iterations within one);
    k. RCM, ho_lane.build_solver(..., reorder="rcm") on the same
       matrices: iterations within one of the unpermuted solve, x within
       RCM_X_LIMIT relative, the formats per level printed;
@@ -118,11 +120,12 @@
    function, from the bytes and operations this run's data needs (see
    _compare); format_bytes is what the kernel's own format streams,
    padding included.
-   The ho rows hold the high-order lane's A0 (f32 ELL, the PCG
-   matvec; bf16 ELL with bf16 and f32 x, the cycle's two pairs, the
-   first bf16 ELL products on a main path) and its bf16 BCSR P0 / R0,
-   each with bound_slots_ms beside bound_ms: the padded table's stream
-   (format_bytes) over the memory rate.
+   The ho rows hold the high-order lane's A0 (f32 BCSR, the PCG
+   matvec; bf16 BCSR with bf16 and f32 x, the cycle's two pairs), the
+   same A0 as the 343-slot ELL table it was before (f32; bf16 with bf16
+   and f32 x: the bf16 ELL pairs stay held against their plain version)
+   and its bf16 BCSR P0 / R0, each with bound_slots_ms beside bound_ms:
+   the stored format's stream (format_bytes) over the memory rate.
    The SPE10 rows include every level's SA hierarchy of the generic
    SPE10 lane (e), BCSR transfers included; the library rows are f64
    (library_lane.kernel_operators: every operator of the form-0 AMGe
@@ -135,6 +138,7 @@ Any failed check exits non-zero before the result lines; without a card
 the script raises and prints no result.  It imports nothing of JAX.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -503,17 +507,24 @@ def _op_rows(rows, path, mats, dev, rng):
         del csr
 
 
-def _ho_rows(rows, H, Hb, dev, rng):
+def _ho_rows(rows, H, Hb, A0, dev, rng):
     """The high-order lane's operators as its solve applies them: A0 in
-    f32 ELL (the PCG matvec) and in bf16 ELL with bf16 and with f32 x
-    (the cycle's two pairs), P0 and R0 in bf16 BCSR with bf16 and f32 x.
-    bound_ms counts the nonzeros (values, int32 columns and row
-    pointers), x and y; bound_slots_ms the stream of the format as
-    stored (format_bytes: the ELL table's 343 slots a row, padding
-    included) over the memory rate."""
+    f32 BCSR (the PCG matvec) and in bf16 BCSR with bf16 and with f32 x
+    (the cycle's two pairs), P0 and R0 in bf16 BCSR with bf16 and f32 x;
+    and the host A0 as the 343-slot ELL table the path held before
+    hierarchy.a_format sent it to BCSR, f32 and bf16 (bf16 and f32 x):
+    the bf16 ELL pairs stay held against their plain version.  bound_ms
+    counts the nonzeros (values, int32 columns and row pointers), x and
+    y; bound_slots_ms the stream of the format as stored (format_bytes:
+    the ELL table's 343 slots a row, padding included) over the memory
+    rate."""
     bf16, f32 = torch.bfloat16, torch.float32
     lvl, lvlb = H.levels[0], Hb.levels[0]
+    E = from_scipy(A0.astype(np.float32), dtype=np.float32, device=dev)
+    Eb = copy.deepcopy(E).to(bf16)
     for label, M, xdts in (("A0", lvl.A, (f32,)), ("A0", lvlb.A, (bf16, f32)),
+                           ("A0 as ELL", E, (f32,)),
+                           ("A0 as ELL", Eb, (bf16, f32)),
                            ("P0", lvlb.P, (bf16, f32)),
                            ("R0", lvlb.R, (bf16, f32))):
         name = kernel_profile.KERNEL_OF[type(M)]
@@ -568,8 +579,8 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dev):
     and every block level, BCSR on the rest, whose uneven rows (~100-600
     nonzeros on the SA coarse levels) reach the kernels' tail
     handling.  library: the library lane's f64 operators
-    (library_lane.kernel_operators).  ho: the high-order lane's (H, Hb)
-    (_ho_rows)."""
+    (library_lane.kernel_operators).  ho: the high-order lane's (H, Hb,
+    host A0) (_ho_rows)."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
@@ -1088,11 +1099,13 @@ def check_library(rec, launches, n16):
 
 def check_ho(rec, launches, Hb):
     """The ho_p2 record: 117,649 dofs at 16^3, p = 2, converged within
-    ITER_SLACK iterations of the host f64 anchor, rel_res <= 1e-4, A0 an
-    ELL matrix whose bf16 cast the cycle applies (more ell_spmv
-    launches in the timed solves than their f32 PCG matvecs, one an
-    iteration and one to start), BCSR transfers, both kernels launched
-    on the path."""
+    ITER_SLACK iterations of the host f64 anchor, rel_res <= 1e-4, A0 a
+    BCSR matrix in f32 (the PCG matvec) and in the bf16 cast the cycle
+    applies (hierarchy.a_format: its 343-slot ELL table would hold 3.45
+    slots a nonzero), BCSR transfers, no ell_spmv in the timed solves,
+    and more bcsr_spmv launches there than the transfers (one R0 and one
+    P0 a cycle, a cycle an iteration and one to start) and the f32
+    matvecs account for: the bf16 cycle applied A0."""
     fails = []
     nv = (HO_P * NX_HO + NX_HO + 1) ** 3
     if rec["ndofs"] != nv:
@@ -1104,19 +1117,24 @@ def check_ho(rec, launches, Hb):
     if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] <= 1e-4):
         fails.append(f"rel_res {rec['rel_res']} > 1e-4")
     A0b = Hb.levels[0].A
-    if type(A0b).__name__ != "EllMatrix" or A0b.dtype != torch.bfloat16:
+    if rec["formats"][0] != "BcsrMatrix":
+        fails.append(f"the f32 A0 is {rec['formats'][0]}, not BcsrMatrix")
+    if type(A0b).__name__ != "BcsrMatrix" or A0b.dtype != torch.bfloat16:
         fails.append(f"the cycle's A0 is {type(A0b).__name__} "
-                     f"{A0b.dtype}, not a bf16 EllMatrix")
+                     f"{A0b.dtype}, not a bf16 BcsrMatrix")
     if set(rec["transfers"]) != {"BcsrMatrix"}:
         fails.append(f"transfers {rec['transfers']}")
-    f32_matvecs = sum(it + 1 for it in rec["timed_iters"])
-    if rec["kernels"]["ell_spmv"] <= f32_matvecs:
+    cycles = sum(it + 1 for it in rec["timed_iters"])
+    if rec["kernels"]["ell_spmv"] != 0:
         fails.append(f"ell_spmv {rec['kernels']['ell_spmv']} launches in "
-                     f"the timed solves, no more than their {f32_matvecs} "
-                     "f32 matvecs: the bf16 cycle did not apply A0")
-    for k in ("ell_spmv", "bcsr_spmv"):
-        if launches[k] <= 0 or rec["kernels"][k] <= 0:
-            fails.append(f"kernel {k} never launched on the ho path")
+                     "the timed solves: A0 did not leave ELL")
+    if rec["kernels"]["bcsr_spmv"] <= 3 * cycles:
+        fails.append(f"bcsr_spmv {rec['kernels']['bcsr_spmv']} launches in "
+                     f"the timed solves, no more than their {2 * cycles} "
+                     f"transfers and {cycles} f32 matvecs: the bf16 cycle "
+                     "did not apply A0")
+    if launches["bcsr_spmv"] <= 0 or rec["kernels"]["bcsr_spmv"] <= 0:
+        fails.append("kernel bcsr_spmv never launched on the ho path")
     if fails:
         raise SystemExit("FAIL ho path: " + "; ".join(fails))
 
@@ -1496,7 +1514,7 @@ def main():
               ho_lane.rel_res(ho_A, ho_b, xr))
     if l_rcm["ell_spmv"] + l_rcm["bcsr_spmv"] <= 0:
         raise SystemExit("FAIL rcm: no kernel launched")
-    del Hr, xr, ho_seqs, ho_A, ho_b, ho_x
+    del Hr, xr, ho_seqs, ho_b, ho_x
     phase("rcm", t0)
 
     t0 = time.perf_counter()
@@ -1518,7 +1536,7 @@ def main():
     print("kernel phase (kernel vs plain on the card):")
     rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
                         (darcy_Hd, darcy_H, block_H), spe10_H, lib_ops,
-                        (ho_H, ho_Hb), dev)
+                        (ho_H, ho_Hb, ho_A), dev)
     phase("kernels", t0)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():

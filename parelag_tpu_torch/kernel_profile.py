@@ -11,6 +11,7 @@
     python -m parelag_tpu_torch.kernel_profile --library 5
     python -m parelag_tpu_torch.kernel_profile --spe10 30,55,21
     python -m parelag_tpu_torch.kernel_profile --ho 16
+    python -m parelag_tpu_torch.kernel_profile --formats
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -85,6 +86,20 @@ torch kernel), and kernel rows for A0 (f32 ELL; bf16 ELL with bf16 and
 with f32 x) and the bf16 BCSR P0 / R0 (bf16 and f32 x), each with
 bound_us counted from the nonzeros and bound_slots_us from the format as
 stored (the ELL table's padded slots).
+
+--formats builds the A levels of every lane that builds a hierarchy
+through solvers/hierarchy.build_hierarchy, at the smoke's sizes (h1
+96^3, the autotune's generic chains at 32^3, Maxwell 24^3, generic
+64^3, the darcy_hyb SA levels at 64^3, the SPE10 SA levels, the
+library's hierarchies at nref 5 with its 32^3 Darcy chain, ho_p2 at 16^3
+with and without RCM) on the card, and prints one row a level: the
+format the build gave A, its rows, stored nonzeros, row width k (ELL
+slots, the longest BCSR row, DIA offsets), dtype and, for ELL and BCSR,
+the JAX package's 8 x 128 tile count of its nonzeros (the inputs of
+hierarchy.a_format).  It uses only the lanes' build functions, so it
+also runs against an older checkout (PYTHONPATH=old python
+/path/to/kernel_profile.py --formats): the formats before and after a
+change of the format rule, in one call.
 
 --darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
 (darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
@@ -701,6 +716,87 @@ def _ho(nx, dev, emit):
             emit(row)
 
 
+def _format_rows(lane, H):
+    """One row a level of H: the format of A, rows, stored nonzeros, row
+    width k, dtype and tile count (the inputs of the A-format rule)."""
+    import scipy.sparse as sp
+    from parelag_tpu_torch.ops.device_sparse import bcsr_stats
+    rows = []
+    for l, lvl in enumerate(H.levels):
+        A = lvl.A
+        tiles = None
+        if isinstance(A, BcsrMatrix):
+            k = int(A.row_ptr.diff().max())
+            tiles = A.nbr * A.kb
+        elif isinstance(A, EllMatrix):
+            n, k = A.values.shape
+            vals = A.values.reshape(-1).cpu().double().numpy()
+            keep = vals != 0
+            M = sp.csr_matrix((vals[keep], (np.repeat(np.arange(n), k)[keep],
+                                            A.indices.reshape(-1).cpu()
+                                            .numpy()[keep])), shape=A.shape)
+            nbr, kb, _ = bcsr_stats(M)
+            tiles = nbr * kb
+        elif isinstance(A, DiaMatrix):
+            k = len(A.offs)
+        else:
+            k = None
+        rows.append(dict(formats=lane, level=l, format=type(A).__name__,
+                         n=int(A.shape[0]), nnz=_nnz(A), k=k, tiles=tiles,
+                         dtype=str(A.dtype),
+                         coarsest=lvl.coarse_inv is not None))
+    return rows
+
+
+def _formats(dev, emit):
+    """The --formats rows (see the module docstring)."""
+    from parelag_tpu_torch import darcy_lane, generic_lane, ho_lane
+    from parelag_tpu_torch import library_lane
+    from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
+    hk.load()
+
+    def report(lane, H):
+        for row in _format_rows(lane, H):
+            emit(row)
+
+    A_l, P_l, _ = flagship.build_h1_structured(96, device=dev)
+    report("h1 96", flagship.build_solver(A_l, P_l, dev)[0])
+    del A_l, P_l
+    for factors in ((2, 2, 2), (4, 4, 4)):
+        topo = generic_lane.build_topologies(32, 64, factors)
+        seqs, A, _, _ = generic_lane.build_h1(32, "device", dev, 64, topo)
+        H, _, _ = build_amge_hierarchy(
+            seqs, 0, A.astype(np.float32), dtype=np.float32,
+            matrix_format="dia", device=dev)
+        report(f"autotune generic {factors} 32", H)
+    _, _, MA, MP, MD0 = maxwell_lane.build_maxwell(24, dev)
+    report("maxwell 24", maxwell_lane.build_solver(MA, MP, MD0, dev))
+    seqs, A, _, _ = generic_lane.build_h1(64, "device", dev)
+    H, _, _ = build_amge_hierarchy(
+        seqs, 0, A.astype(np.float32), sweeps=generic_lane.SWEEPS,
+        dtype=np.float32, device=dev)
+    report("generic 64", H)
+    del seqs, A, H
+    hyb, Hs, _ = darcy_lane.build_darcy_hyb(64)
+    report("darcy_hyb SA 64", hyb._device_setup(Hs, dev)[2])
+    del hyb, Hs
+    _, out = darcy_lane.lane_spe10(darcy_lane.SPE10_CELLS, dev)
+    for l, H in enumerate(out["device_hierarchies"]):
+        if H is not None:
+            report(f"spe10 L{l} SA", H)
+    del out
+    _, solvers, _ = library_lane.lane_library(library_lane.LIB_NREF, dev)
+    for name, s in solvers.items():
+        H = library_lane.hierarchy_of(s)
+        if H is not None:
+            report(f"library {name}", H)
+    del solvers
+    seqs, A, _, _ = ho_lane.build_ho(ho_lane.NX, ho_lane.P, dev)
+    report("ho 16", ho_lane.build_solver(seqs, A, dev)[0])
+    report("ho 16 rcm", ho_lane.build_solver(seqs, A, dev,
+                                             reorder="rcm")[0])
+
+
 def _tune_ell(P0, Hm, dev, slots):
     """The ELL variants with hopper_kernels.ELL_SLOTS set to each S in
     slots; the setting and the plan cache are restored after."""
@@ -775,6 +871,9 @@ def main(argv=None):
     ap.add_argument("--ho", type=int, default=0,
                     help="profile only the high-order lane at this grid "
                     "(e.g. 16)")
+    ap.add_argument("--formats", action="store_true",
+                    help="print only the A format of every level of every "
+                    "lane's hierarchy")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
                     help="time the level-0 multi-RHS DIA variants with "
                     "one phase of the staged kernels left out")
@@ -804,6 +903,9 @@ def _run(args, emit):
         return
     if args.ho:
         _ho(args.ho, dev, emit)
+        return
+    if args.formats:
+        _formats(dev, emit)
         return
     if args.ablate:
         # a build of its own: the flags are part of the library's hash

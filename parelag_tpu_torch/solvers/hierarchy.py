@@ -20,7 +20,8 @@ from torch import nn
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops.device_sparse import (
-    BC, BR, as_torch_dtype, dia_n_offsets, from_scipy, to_bcsr, to_dia)
+    BC, BR, as_torch_dtype, bcsr_stats, dia_n_offsets, from_scipy, to_bcsr,
+    to_dia)
 
 
 class Level(nn.Module):
@@ -123,6 +124,33 @@ def transfer_format(device, matrix_format="auto"):
     return "bcsr"
 
 
+#: a_format keeps ELL only while the padded table holds at most this
+#: many slots a nonzero (the SA and AMGe levels the rule keeps in ELL
+#: hold 1.03-1.56; the ho_p2 A0 holds 3.45: 343 slots for 99.5 a row)
+ELL_MAX_FILL = 2.0
+
+
+def a_format(shape, nnz, k, itemsize, tiles):
+    """The format of an operator A on the card, from its shape, stored
+    nonzeros, longest row k, value bytes and `tiles`, the JAX package's
+    8 x 128 tile count (ops/device_sparse.bcsr_stats: nbr * kb).  An ELL
+    table of more than ELL_MAX_FILL slots a nonzero goes to BCSR, which
+    stores the nonzeros only: the padding streams more than ELL's
+    regular rows save (ROADMAP C3: the ho_p2 A0 as a 343-slot table took
+    2.3-3.1x the CSR library call).  A table within that bound keeps the
+    decision PRs 1-10 measured, the JAX package's tile test (BCSR while
+    its tile array stays under 2^29 bytes and 128 x the nonzeros, else
+    ELL): no size or fill threshold alone reproduces it, since the same
+    matrices take ELL in f64 and BCSR in f32 there, and Maxwell's BCSR A0
+    is as large as the library's ELL A1."""
+    if shape[0] * k > ELL_MAX_FILL * max(nnz, 1):
+        return "bcsr"
+    slots = tiles * BR * BC
+    if slots * itemsize <= (1 << 29) and slots <= 128 * max(nnz, 1):
+        return "bcsr"
+    return "ell"
+
+
 def rcm_permute(A_scipy_levels, P_scipy_levels):
     """Reverse Cuthill-McKee on every level (the JAX build_hierarchy's
     reorder="rcm"): returns the permuted A_l[p_l][:, p_l], the permuted
@@ -147,8 +175,10 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
 
     A_scipy_levels: [A_0, ..., A_L]; P_scipy_levels: [P_0, ..., P_{L-1}];
     smoother_factory(A_scipy, level) -> smoother module (given the
-    permuted A under reorder).  The transfer format is
-    transfer_format's: BCSR on the card, ELL on the CPU.
+    permuted A under reorder).  matrix_format for A: "dia" (DIA while a
+    level has at most 48 offsets, else "auto"), "bcsr", "ell" or "auto"
+    (ELL on the CPU, a_format's rule on the card).  The transfer format
+    is transfer_format's: BCSR on the card, ELL on the CPU.
     reorder="rcm": rcm_permute every level; the Hierarchy carries level
     0's perm / iperm.  device=None builds on the card."""
     device = resolve_device(device)
@@ -166,27 +196,28 @@ def build_hierarchy(A_scipy_levels, P_scipy_levels, smoother_factory,
     def to_dev(M):
         M = sp.csr_matrix(M)
         fmt = matrix_format
-        if fmt == "auto":
-            fmt = "ell" if on_cpu else "bcsr"
         if fmt == "dia":
             # gather-free shift SpMV while the offset count stays small
             # (the 27-diagonal lexicographic grid); coarse RAP levels that
-            # are not banded fall through to bcsr
+            # are not banded fall through to the "auto" rule
             nd = dia_n_offsets(M)
             if (nd <= 48 and nd * max(M.shape)
                     * np.dtype(dtype).itemsize <= (1 << 30)):
                 return to_dia(M, dtype=dtype, device=device)
-            fmt = "bcsr"
+            fmt = "auto"
+        if fmt == "auto" and on_cpu:
+            fmt = "ell"
+        elif fmt == "auto":
+            # the tile counts of the nonzeros to_bcsr would keep
+            Mz = sp.csr_matrix(M, copy=True)
+            Mz.sum_duplicates()
+            Mz.eliminate_zeros()
+            nbr, kb, _ = bcsr_stats(Mz)
+            fmt = a_format(M.shape, M.nnz,
+                           int(np.diff(M.indptr).max(initial=0)),
+                           np.dtype(dtype).itemsize, nbr * kb)
         if fmt == "bcsr":
-            # the JAX package's rule on its tile array: nbr * kb tiles
-            # of 8 x 128 (bcsr_stats), though the port stores only the
-            # nonzeros, so that the same matrices take the same format
-            B = to_bcsr(M, dtype=dtype, device=device)
-            slots = B.nbr * B.kb * BR * BC
-            size_ok = (slots * np.dtype(dtype).itemsize <= (1 << 29)
-                       and slots <= 128 * max(M.nnz, 1))
-            if size_ok:
-                return B
+            return to_bcsr(M, dtype=dtype, device=device)
         return from_scipy(M, dtype=dtype, device=device)
 
     perm0 = iperm0 = None

@@ -744,8 +744,8 @@ def test_bcsr_spmv_f64_matches_plain(card, n, k):
 def test_ho_operators_on_card_match_plain(card):
     """The high-order lane at 4^3, p = 2, on the card: every operator its
     f32 hierarchy and bf16 preconditioner apply, in the format the build
-    gives it (A0 BCSR here, ELL at 16^3; BCSR transfers), kernel against
-    plain; then one preconditioned solve converges with both kernels
+    gives it (A0 BCSR, as at 16^3; BCSR transfers), kernel against
+    plain; then one preconditioned solve converges with bcsr_spmv
     launched."""
     from parelag_tpu_torch import ho_lane
     from parelag_tpu_torch.kernel_profile import KERNEL_OF
@@ -753,6 +753,8 @@ def test_ho_operators_on_card_match_plain(card):
     seqs, A, b, _ = ho_lane.build_ho(4, 2, card)
     H, Hb, _, _ = ho_lane.build_solver(seqs, A, card)
     assert [type(l.P).__name__ for l in Hb.levels[:-1]] == ["BcsrMatrix"]
+    assert type(Hb.levels[0].A).__name__ == "BcsrMatrix"
+    assert Hb.levels[0].A.dtype == torch.bfloat16
     rng = np.random.RandomState(11)
     for label, M in level_operators(H) + level_operators(Hb):
         name = KERNEL_OF[type(M)]
@@ -822,3 +824,4 @@ def test_rcm_hierarchy_on_card(card):
     assert abs(int(itr) - int(it0)) <= 1
     assert np.abs(xr - x0).max() <= 1e-8 * np.abs(x0).max()
     assert np.linalg.norm(b - A @ xr) <= 1e-8 * np.linalg.norm(b)
+

@@ -1,9 +1,12 @@
-"""The transfer format on the card (ROADMAP C2): P and R are BCSR on a
-CUDA device and ELL on the CPU, where the JAX package's rule on its
-8 x 128 tile counts would pick TileCoo.  The 'meta' device stands in
-for the card in build_hierarchy: it allocates nothing."""
+"""The formats on the card.  Transfers (ROADMAP C2): P and R are BCSR on
+a CUDA device and ELL on the CPU, where the JAX package's rule on its
+8 x 128 tile counts would pick TileCoo.  A (ROADMAP C3):
+hierarchy.a_format sends an operator whose ELL table would be mostly
+padding to BCSR.  The 'meta' device stands in for the card in
+build_hierarchy: it allocates nothing."""
 
 import numpy as np
+import pytest
 import scipy.sparse as sp
 import torch
 
@@ -58,3 +61,60 @@ def test_build_hierarchy_stores_bcsr_transfers_off_the_cpu():
         lvl = H.levels[0]
         assert type(lvl.P).__name__ == type(lvl.R).__name__ == fmt
         assert lvl.R.shape == (512, P.shape[0])
+
+
+def _padded_rows(n=2048, seed=0):
+    """A matrix with the ho_p2 A0's trouble at a small size: one row of
+    343 nonzeros among rows of 5 spread over the columns, so its ELL
+    table would hold ~66 slots a nonzero, and its JAX tile array fails
+    the tile test (the rule that sent the ho_p2 A0 to ELL)."""
+    rng = np.random.RandomState(seed)
+    rows = np.concatenate([np.repeat(np.arange(1, n), 5),
+                           np.zeros(343, np.int64)])
+    cols = np.concatenate([rng.randint(0, n, 5 * (n - 1)),
+                           rng.choice(n, 343, replace=False)])
+    M = sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n, n))
+    return (M + M.T + 20 * sp.identity(n)).tocsr()
+
+
+def test_padded_a_goes_to_bcsr_on_the_card():
+    """ROADMAP C3: on the stand-in card an operator whose ELL table
+    would be mostly padding is a BcsrMatrix, asked as "auto" or through
+    the "dia" fall-through, and stays one in the bf16 cast; the CPU
+    keeps ELL."""
+    A = _padded_rows()
+    nbr, kb, _ = bcsr_stats(A)
+    k = int(np.diff(A.indptr).max())
+    slots = nbr * kb * BR * BC
+    assert slots * 4 <= (1 << 29) and slots > 128 * A.nnz   # tile test: ELL
+    assert A.shape[0] * k > th.ELL_MAX_FILL * A.nnz
+    for fmt in ("auto", "dia"):
+        for dev, name in (("meta", "BcsrMatrix"), ("cpu", "EllMatrix")):
+            H = th.build_hierarchy([A], [], _factory(
+                dict(smoother="l1jacobi"), dev), dtype=np.float32,
+                matrix_format=fmt, device=dev)
+            Hb = H.cast(torch.bfloat16)
+            assert type(H.levels[0].A).__name__ == name, (fmt, dev)
+            assert type(Hb.levels[0].A).__name__ == name
+            assert Hb.levels[0].A.values.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("lane,stats,fmt", [
+    # (rows, nonzeros, longest row, value bytes, JAX tile count) of each
+    # lane's operator on the card (kernel_profile --formats, PR 11)
+    ("ho_p2 A0", (117649, 11710909, 343, 4, 514745), "bcsr"),
+    ("spe10 L1 SA A0", (32768, 3633870, 241, 4, 348160), "bcsr"),
+    ("generic 64^3 A0", (274625, 6765657, 27, 4, 308961), "ell"),
+    ("library form-0 A0", (274625, 6765657, 27, 8, 2025411), "ell"),
+    ("library form-1 A0", (811200, 25082568, 33, 8, 2737800), "ell"),
+    ("darcy SA A0", (1048576, 8668672, 11, 4, 1179648), "ell"),
+    ("darcy SA A1", (71469, 4523720, 99, 4, 223350), "ell"),
+    ("Maxwell 24^3 A0", (45000, 1180752, 33, 4, 73125), "bcsr"),
+    ("generic 64^3 A1", (35937, 912673, 27, 4, 26958), "bcsr"),
+])
+def test_a_format_on_the_lanes_statistics(lane, stats, fmt):
+    """ROADMAP C3 as a pure function: the padded ho_p2 A0 (3.45 slots a
+    nonzero) and SPE10 L1 A0 (2.17) take BCSR; the operators PRs 1-10
+    measured keep their formats."""
+    n, nnz, k, itemsize, tiles = stats
+    assert th.a_format((n, n), nnz, k, itemsize, tiles) == fmt
