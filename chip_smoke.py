@@ -9,7 +9,8 @@
                                 # the high-order ho_p2 lane at 16^3
                                 # (and with RCM), the structured
                                 # engine's heterogeneous and Darcy
-                                # chains
+                                # chains, the dist lane (8 ranks on
+                                # the card)
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
@@ -101,6 +102,16 @@
       materialize_P for all four forms, and its Galerkin and commutation
       residuals on the host <= A4_LIMIT; coarsen_darcy at 96^3 against
       coarsen_structured(jform_start=2) within 1e-12 (no hand kernel).
+   m. the distributed plane, parallel.dist_bench.distributed_solve_bench
+      (DIST_RANKS, ny_per_rank, DIST_STEPS) at bench.py's dist lane shape
+      (ny_per_rank 4: grid 16 x 32 x 20, 11,781 dofs, 4 levels) and
+      weak-scaled to ny_per_rank 32 (16 x 256 x 20, 91,749 dofs): the
+      distributed setup on the host, then the f32 L-level V-cycle PCG
+      step with the 8 ranks as a batch axis on the card (every local
+      product in ell_spmv), timed by CUDA events: setup_s, step_s, value
+      and the steps' launches printed beside the card; x after the steps
+      as close to the same steps on the CPU as twice f32's own error
+      there (check_dist), and entry.dryrun_multichip(8) on the card.
    Then each slice at a small size on the card and on the CPU (plain
    versions) must agree: the flagship at 16^3, Maxwell at 6^3, the
    generic engine at 8^3 (the host backend on the CPU against the device
@@ -130,7 +141,9 @@
    SPE10 lane (e), BCSR transfers included; the library rows are f64
    (library_lane.kernel_operators: every operator of the form-0 AMGe
    hierarchy, BCSR transfers included, and the form-1 Hiptmair D0,
-   A_aux0 and Krylov A0 in ELL), held at 1e-12.
+   A_aux0 and Krylov A0 in ELL), held at 1e-12.  The dist rows are
+   ell_spmv on the weak-scaled dist run's flat tables: every level's A
+   in the halo form and P's rows (dist_bench.level_operators).
 4. Prints each phase's seconds, {"kernels": [...]} and, last,
    {"ok": true, "device": {...}}.
 
@@ -156,6 +169,8 @@ from parelag_tpu_torch import (
 from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.amge import structured_spectral as sps
 from parelag_tpu_torch.models.multigrid import multigrid_test_form
+from parelag_tpu_torch.parallel import dist_bench
+from parelag_tpu_torch.parallel.sharding import make_dd_mesh
 from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
 from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
 from parelag_tpu_torch.ops.device_sparse import (
@@ -215,6 +230,9 @@ A4_SHAPE, A4_LEVELS = (64, 64, 64), 3   # the heterogeneous chain
 A4_DARCY_SHAPE = (96, 96, 96)           # coarsen_darcy, the flagship grid
 A4_LIMIT = 1e-11        # Galerkin and commutation residuals (f64)
 A4_DARCY_LIMIT = 1e-12  # coarsen_darcy against the full chain's stages
+# the dist lane (parallel/dist_bench): bench.py's 8 ranks at its
+# ny_per_rank = 4 (11,781 dofs), then weak-scaled to 32 (91,749 dofs)
+DIST_RANKS, DIST_NY, DIST_STEPS = 8, (4, 32), 20
 
 # name -> (source, the TPU kernel it replaces (file:line), main path)
 SOURCES = {
@@ -565,7 +583,8 @@ def _ho_rows(rows, H, Hb, A0, dev, rng):
         del csr
 
 
-def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dev):
+def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dist,
+                 dev):
     """Each kernel against its plain version at the main paths' shapes,
     on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
@@ -580,7 +599,8 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dev):
     nonzeros on the SA coarse levels) reach the kernels' tail
     handling.  library: the library lane's f64 operators
     (library_lane.kernel_operators).  ho: the high-order lane's (H, Hb,
-    host A0) (_ho_rows)."""
+    host A0) (_ho_rows).  dist: the weak-scaled dist run's operators
+    (dist_bench.level_operators), as _op_rows."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
@@ -608,6 +628,7 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dev):
         _op_rows(rows, f"spe10 L{l} SA", level_operators(H), dev, rng)
     _op_rows(rows, "library", library, dev, rng)
     _ho_rows(rows, *ho, dev, rng)
+    _op_rows(rows, "dist", dist, dev, rng)
     return rows
 
 
@@ -1228,6 +1249,59 @@ def structured_a4(dev):
                 darcy_s=darcy_s, darcy_diff=dd)
 
 
+def dist_path(dev):
+    """dist_bench.distributed_solve_bench at every DIST_NY: [(record,
+    (hier, b, x))]."""
+    return [dist_bench.distributed_solve_bench(DIST_RANKS, ny, DIST_STEPS,
+                                               dev) for ny in DIST_NY]
+
+
+def check_dist(runs, launches, smi):
+    """Each dist run: 17 (8 ny + 1) 21 dofs on 4 levels, finite rel_res
+    below the zero guess's, ell_spmv launched in the timed steps, and x
+    as close to the same f32 steps on the CPU (the port's plain versions
+    on the same hierarchy) as twice f32's own error there: the CPU's f32
+    x against the same steps in f64 arithmetic on the same f32 tables
+    (two f32 runs each that far from the f64 one lie within twice it;
+    the gap is 1.4e-5 at ny_per_rank 4 and 8.2e-4 at 32 on the CPU,
+    where the f32 iteration loses more); then
+    dryrun_multichip(DIST_RANKS) on the card."""
+    fails = []
+    cpu = make_dd_mesh(DIST_RANKS, "cpu")
+    for rec, (hier, b, x) in runs:
+        ny = rec["ny_per_rank"]
+        xs = [hier.systems[0].to_global(dist_bench.steps_from_zero(
+            h, b, cpu)(DIST_STEPS)[0].double().numpy())
+            for h in (hier, dist_bench.cast(hier, np.float64))]
+        xc, x64 = xs
+        gap = float(np.linalg.norm(xc - x64) / np.linalg.norm(x64))
+        dx = float(np.linalg.norm(x - xc) / np.linalg.norm(xc))
+        print(f"  dist {DIST_RANKS} ranks ny_per_rank={ny} ({smi}): ndofs "
+              f"{rec['ndofs']} levels {rec['level_ndofs']} setup_s "
+              f"{rec['setup_s']:.2f} step_s {rec['step_s']:.6f} value "
+              f"{rec['value']:.4e} {rec['unit']} rel_res {rec['rel_res']:.3e}"
+              f" after {DIST_STEPS} steps, kernels {rec['kernels']}; card "
+              f"vs CPU |dx|/|x| {dx:.3e} (limit 2 x the CPU's f32 vs f64 "
+              f"{gap:.3e})")
+        nv = 17 * (8 * ny + 1) * 21
+        if rec["ndofs"] != nv or rec["levels"] != 4:
+            fails.append(f"ny {ny}: ndofs {rec['ndofs']} levels "
+                         f"{rec['levels']} (need {nv}, 4)")
+        if not (np.isfinite(rec["rel_res"]) and rec["rel_res"] < 1):
+            fails.append(f"ny {ny}: rel_res {rec['rel_res']}")
+        if rec["kernels"]["ell_spmv"] <= 0:
+            fails.append(f"ny {ny}: no ell_spmv in the timed steps")
+        if not dx <= 2 * gap:
+            fails.append(f"ny {ny}: card vs CPU {dx} > 2 x {gap}")
+    if launches["ell_spmv"] <= 0:
+        fails.append("kernel ell_spmv never launched on the dist path")
+    entry.dryrun_multichip(DIST_RANKS)
+    torch.cuda.synchronize()
+    print(f"  dryrun_multichip({DIST_RANKS}) ok")
+    if fails:
+        raise SystemExit("FAIL dist path: " + "; ".join(fails))
+
+
 def check_entry(dev):
     """entry.entry() on the card against the same call on the CPU."""
     fn, args = entry.entry()
@@ -1524,6 +1598,19 @@ def main():
     phase("structured_a4", t0)
 
     t0 = time.perf_counter()
+    print(f"main path dist (parallel.dist_bench.distributed_solve_bench("
+          f"{DIST_RANKS}, ny_per_rank in {DIST_NY}), the ranks as a batch "
+          "axis on the card):")
+    dist_runs, l_dist = _path("dist", lambda: dist_path(dev))
+    for rec, _ in dist_runs:
+        print("  record: " + json.dumps(rec))
+    check_dist(dist_runs, l_dist, smi)
+    dist_ops = dist_bench.level_operators(dist_runs[-1][1][0].device_args(
+        make_dd_mesh(DIST_RANKS, dev))[0])
+    del dist_runs
+    phase("dist", t0)
+
+    t0 = time.perf_counter()
     small_check(dev)
     small_check_maxwell(dev)
     small_check_generic(dev)
@@ -1536,7 +1623,7 @@ def main():
     print("kernel phase (kernel vs plain on the card):")
     rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
                         (darcy_Hd, darcy_H, block_H), spe10_H, lib_ops,
-                        (ho_H, ho_Hb, ho_A), dev)
+                        (ho_H, ho_Hb, ho_A), dist_ops, dev)
     phase("kernels", t0)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():
@@ -1550,7 +1637,7 @@ def main():
                    "spe10_structured": l_sx[name],
                    "spe10_full": l_sf[name], "spe10_ml": l_ml[name],
                    "ho": l_ho[name], "rcm": l_rcm[name],
-                   "structured_a4": l_a4[name]}
+                   "structured_a4": l_a4[name], "dist": l_dist[name]}
         kernels.append(dict(
             name=name, path=path, route="cuda", source=src,
             replaces=replaces,
@@ -1565,6 +1652,8 @@ def main():
                               if v["variant"].startswith("library")],
             ho_variants=[v["variant"] for v in r
                          if v["variant"].startswith("ho")],
+            dist_variants=[v["variant"] for v in r
+                           if v["variant"].startswith("dist")],
             max_abs_err=max(v["max_abs_err"] for v in r),
             max_rel_err=max(v["max_rel_err"] for v in r),
             ms=head["ms"], plain_ms=head["plain_ms"],

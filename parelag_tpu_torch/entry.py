@@ -5,8 +5,9 @@ cube refined once (125 dofs, two levels), on the card.
     python -m parelag_tpu_torch.entry        # prints "entry ok: (125,)"
 
 build_poisson is __graft_entry__._build_poisson on the port's copies of
-the generic engine; the multi-chip dry run (dryrun_multichip) is not
-ported yet (ROADMAP A12).
+the generic engine.  dryrun_multichip(n) is __graft_entry__'s
+multi-device dry run with the n ranks as the batch axis of one device
+(parallel.sharding.RankMesh).
 """
 
 import numpy as np
@@ -68,6 +69,33 @@ def entry(device=None):
                                    sweeps=1, dtype=np.float32,
                                    device=device)
     return step, (H, torch.as_tensor(b).to(device))
+
+
+def dryrun_multichip(n_devices, device=None):
+    """The full distributed pipeline over n_devices ranks on `device`
+    (None: the card): the distributed setup of the dist lane's grid
+    (16, 4 n, 20) -- recursive patch-based Coarsen, per-level owned
+    operator rows, no global fine matrix -- feeding one rank-batched
+    L-level V-cycle PCG step with the halo exchange at every level (all
+    outputs finite), then the setup's rank-batched dense solves
+    (parallel.shard_setup.sharded_solve_groups) against numpy.  Raises
+    RuntimeError on a failed check."""
+    from parelag_tpu_torch.parallel.dist_bench import build, steps_from_zero
+    from parelag_tpu_torch.parallel.shard_setup import sharded_solve_groups
+    from parelag_tpu_torch.parallel.sharding import make_dd_mesh
+    mesh = make_dd_mesh(n_devices, device)
+    _, hier, b = build(n_devices, 4, dtype=np.float32)
+    out = steps_from_zero(hier, b, mesh)(0)
+    if not all(bool(torch.isfinite(o).all()) for o in out):
+        raise RuntimeError("dryrun_multichip: a non-finite step output")
+    rng = np.random.RandomState(0)
+    As = [rng.randn(2 + r % 3, 6, 6).astype(np.float32) + 6 * np.eye(
+        6, dtype=np.float32) for r in range(n_devices)]
+    Bs = [rng.randn(A.shape[0], 6, 2).astype(np.float32) for A in As]
+    Xs = sharded_solve_groups(As, Bs, mesh)
+    for A_, B_, X_ in zip(As, Bs, Xs):
+        if not np.abs(A_ @ X_ - B_).max() < 1e-3:
+            raise RuntimeError("dryrun_multichip: sharded setup solve")
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@
     python -m parelag_tpu_torch.kernel_profile --spe10 30,55,21
     python -m parelag_tpu_torch.kernel_profile --ho 16
     python -m parelag_tpu_torch.kernel_profile --formats
+    python -m parelag_tpu_torch.kernel_profile --dist 8 [--dist-ny 4,32]
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -100,6 +101,16 @@ hierarchy.a_format).  It uses only the lanes' build functions, so it
 also runs against an older checkout (PYTHONPATH=old python
 /path/to/kernel_profile.py --formats): the formats before and after a
 change of the format rule, in one call.
+
+--dist N profiles the dist lane (parallel/dist_bench) with N ranks as
+the batch axis on the card at each ny_per_rank of --dist-ny (default
+4,32: bench.py's shape and the weak-scaled one): a setup row (host
+setup seconds, dofs per level), a solve row for one rank-batched
+L-level V-cycle PCG step from the state after the init step (wall
+against device busy, the idle share, device time by hand kernel and by
+torch kernel), and kernel rows, with bound_us and the library call, for
+ell_spmv on every operator the step applies
+(dist_bench.level_operators).
 
 --darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
 (darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
@@ -797,6 +808,31 @@ def _formats(dev, emit):
                                              reorder="rcm")[0])
 
 
+def _dist(n, nys, dev, emit):
+    """The --dist rows (see the module docstring)."""
+    from parelag_tpu_torch.parallel import dist_bench
+    from parelag_tpu_torch.parallel.sharding import (
+        distributed_mg_l_step, make_dd_mesh)
+    hk.load()
+    mesh = make_dd_mesh(n, dev)
+    for ny in nys:
+        t0 = time.perf_counter()
+        _, hier, b = dist_bench.build(n, ny)
+        emit(dict(dist_setup=f"{n} ranks ny_per_rank={ny}",
+                  setup_s=time.perf_counter() - t0,
+                  level_ndofs=[int(s.ndofs) for s in hier.systems]))
+        levels, cinv, g2v = hier.device_args(mesh)
+        step = distributed_mg_l_step(mesh, hier)(levels)
+        st = dist_bench.steps_from_zero(hier, b, mesh)(0)
+        emit(_solve_row(f"dist {n} ranks ny_per_rank={ny} one L-level "
+                        f"step ({hier.systems[0].ndofs} dofs, f32)",
+                        lambda: step(levels, cinv, g2v, *st)))
+        for row in _operator_rows(f"dist ny={ny}",
+                                  dist_bench.level_operators(levels), dev,
+                                  np.random.RandomState(9)):
+            emit(row)
+
+
 def _tune_ell(P0, Hm, dev, slots):
     """The ELL variants with hopper_kernels.ELL_SLOTS set to each S in
     slots; the setting and the plan cache are restored after."""
@@ -871,6 +907,11 @@ def main(argv=None):
     ap.add_argument("--ho", type=int, default=0,
                     help="profile only the high-order lane at this grid "
                     "(e.g. 16)")
+    ap.add_argument("--dist", type=int, default=0,
+                    help="profile only the dist lane's step with this many "
+                    "ranks (e.g. 8)")
+    ap.add_argument("--dist-ny", default="4,32",
+                    help="comma-separated ny_per_rank of the --dist rows")
     ap.add_argument("--formats", action="store_true",
                     help="print only the A format of every level of every "
                     "lane's hierarchy")
@@ -906,6 +947,10 @@ def _run(args, emit):
         return
     if args.formats:
         _formats(dev, emit)
+        return
+    if args.dist:
+        _dist(args.dist, [int(v) for v in args.dist_ny.split(",")], dev,
+              emit)
         return
     if args.ablate:
         # a build of its own: the flags are part of the library's hash

@@ -138,11 +138,12 @@ def a_format(shape, nnz, k, itemsize, tiles):
     stores the nonzeros only: the padding streams more than ELL's
     regular rows save (ROADMAP C3: the ho_p2 A0 as a 343-slot table took
     2.3-3.1x the CSR library call).  A table within that bound keeps the
-    decision PRs 1-10 measured, the JAX package's tile test (BCSR while
-    its tile array stays under 2^29 bytes and 128 x the nonzeros, else
-    ELL): no size or fill threshold alone reproduces it, since the same
-    matrices take ELL in f64 and BCSR in f32 there, and Maxwell's BCSR A0
-    is as large as the library's ELL A1."""
+    format the port took before the bound and measured since, the JAX
+    package's tile test (BCSR while its tile array stays under 2^29
+    bytes and 128 x the nonzeros, else ELL): no size or fill threshold
+    alone reproduces it, since the same matrices take ELL in f64 and BCSR
+    in f32 there, and Maxwell's BCSR A0 is as large as the library's ELL
+    A1."""
     if shape[0] * k > ELL_MAX_FILL * max(nnz, 1):
         return "bcsr"
     slots = tiles * BR * BC

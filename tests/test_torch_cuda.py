@@ -825,3 +825,35 @@ def test_rcm_hierarchy_on_card(card):
     assert np.abs(xr - x0).max() <= 1e-8 * np.abs(x0).max()
     assert np.linalg.norm(b - A @ xr) <= 1e-8 * np.linalg.norm(b)
 
+
+@pytest.mark.cuda
+def test_rank_batched_step_on_card_matches_cpu(card):
+    """The init step and one rank-batched L-level V-cycle PCG step of the
+    dist lane's setup (2 ranks, grid 16 x 8 x 20) on the card equal the
+    same steps on the CPU: every output within 1e-10 in f64; in f32, the
+    lane's dtype, x within twice f32's own error on the CPU (its x
+    against the same steps in f64 arithmetic on the same f32 tables: two
+    f32 runs that far from it lie within twice it); ell_spmv runs every
+    local product on the card."""
+    from parelag_tpu_torch.parallel import dist_bench
+    from parelag_tpu_torch.parallel.sharding import make_dd_mesh
+    cpu = torch.device("cpu")
+    for dtype in (np.float64, np.float32):
+        _, hier, b = dist_bench.build(2, 4, dtype)
+        outs = []
+        for dev in (card, cpu):
+            before = hk.LAUNCHES["ell_spmv"]
+            st = dist_bench.steps_from_zero(hier, b,
+                                            make_dd_mesh(2, dev))(1)
+            torch.cuda.synchronize()
+            outs.append([t.cpu().double() for t in st])
+            launched = hk.LAUNCHES["ell_spmv"] - before
+            assert (launched > 0) == (dev.type == "cuda"), launched
+        (g, c) = outs
+        if dtype == np.float64:
+            for i in range(4):
+                assert _rel(g[i], c[i]) <= 1e-10, i
+        else:
+            x64 = dist_bench.steps_from_zero(dist_bench.cast(
+                hier, np.float64), b, make_dd_mesh(2, cpu))(1)[0]
+            assert _rel(g[0], c[0]) <= 2 * _rel(c[0], x64)

@@ -308,7 +308,10 @@ VERBATIM = ["utils/errors.py", "ops/ragged.py", "ops/csr.py", "mesh/mesh.py",
             "models/embedded.py", "models/logical_demo.py",
             "topology/coloring.py", "mesh/vtk.py", "amge/fespace2d.py",
             "amge/fespace2d_ho.py", "amge/hexfe_ho.py", "amge/tetfe_ho.py",
-            "amge/fespace3d_tet_ho.py"]
+            "amge/fespace3d_tet_ho.py", "parallel/patch.py",
+            "parallel/dist_partition.py", "parallel/dist_topology.py",
+            "parallel/dist_sequence.py", "parallel/dist_coarsen.py",
+            "parallel/dist_hierarchy.py"]
 
 
 def _rewritten(text):

@@ -99,7 +99,9 @@ def _entry_points():
     from parelag_tpu_torch.amge import (
         spectral, structured, structured_spectral, structured_spectral_ml)
     from parelag_tpu_torch.amge.hybridization import HybridHdivL2
-    from parelag_tpu_torch.models import maxwell, multigrid, upscaling
+    from parelag_tpu_torch.models import (
+        maxwell, multigrid, upscaling, weak_scaling)
+    from parelag_tpu_torch.parallel import dist_bench, sharding
     from parelag_tpu_torch.ops import batched, device_sparse as ds
     from parelag_tpu_torch.solvers import (
         amge_solver, autotune, block, cg, hierarchy, library, sa_amg,
@@ -198,6 +200,13 @@ def _entry_points():
         "upscaling.build_hierarchy(backend='device')":
             lambda: upscaling.build_hierarchy(nref_parallel=1,
                                               backend="device"),
+        "sharding.make_dd_mesh": lambda: sharding.make_dd_mesh(2),
+        "dist_bench.distributed_solve_bench":
+            lambda: dist_bench.distributed_solve_bench(2),
+        "entry.dryrun_multichip": lambda: entry.dryrun_multichip(2),
+        "weak_scaling.distributed_weak_scaling":
+            lambda: weak_scaling.distributed_weak_scaling((1,),
+                                                          base=(2, 2, 2)),
     }
 
 

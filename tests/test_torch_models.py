@@ -12,7 +12,8 @@ within 1e-10 relative (the same numpy code run again).  The copies are
 checked byte for byte against their sources (upscaling.py after
 UPSCALING_EDITS, maxwell.py after MAXWELL_EDITS, and the engine's
 amge/sequence.py and amge/fespace3d_ho.py after SEQUENCE_EDITS and
-HO_EDITS)."""
+HO_EDITS, the distributed plane's parallel/ghost.py and
+models/weak_scaling.py after GHOST_EDITS and WEAK_SCALING_EDITS)."""
 
 import os
 import re
@@ -282,12 +283,92 @@ HO_EDITS = [
 ]
 
 
+# the documented edits of the port's parallel/ghost.py: GhostMap's device
+# verbs on the rank axis of one tensor (a padded ghost reads a scratch
+# zero: torch refuses the out-of-range index JAX clamps)
+GHOST_EDITS = [
+    ("* device execution — ONE shard_map collective each over the `dd` mesh\n"
+     "  axis: distribute = all_gather + ghost-slot gather; assemble =\n"
+     "  scatter-add into the virtual layout + psum (exactly\n"
+     "  SharingMap.Assemble's additive reduction as a collective).\n",
+     "* device execution — ONE index op each over the rank axis of a\n"
+     "  parallel.sharding.RankMesh (the ranks as the leading axis of one\n"
+     "  tensor): distribute = ghost-slot gather from the flattened blocks;\n"
+     "  assemble = scatter-add into the virtual layout, summed over ranks\n"
+     "  (SharingMap.Assemble's additive reduction).\n"),
+    ("    def device_fns(self, mesh):\n"
+     "        \"\"\"(gvirt, distribute_fn, assemble_fn) as jitted shard_map\n"
+     "        collectives. Block layout: (ndev, n_loc) owned values; ghosts\n"
+     "        padded to the max ghost count (validity mask from\n"
+     "        `ghost_mask()`); padded contribution slots route to a scratch\n"
+     "        slot and are discarded.\"\"\"\n"
+     "        import jax\n"
+     "        import jax.numpy as jnp\n"
+     "        from jax.sharding import PartitionSpec as P\n"
+     "        from parelag_tpu_torch.parallel.sharding import shard_map\n",
+     "    def device_fns(self, mesh):\n"
+     "        \"\"\"(gvirt, distribute_fn, assemble_fn) on mesh.device (a\n"
+     "        parallel.sharding.RankMesh). Block layout: (ndev, n_loc) owned\n"
+     "        values; ghosts padded to the max ghost count (validity mask from\n"
+     "        `ghost_mask()`); padded slots point at a scratch slot: a padded\n"
+     "        ghost reads 0, a padded contribution is discarded.\"\"\"\n"
+     "        import torch\n"),
+    ("        gvirt = jnp.asarray(gv)\n"
+     "\n"
+     "        @jax.jit\n"
+     "        @lambda f: shard_map(f, mesh=mesh,\n"
+     "                             in_specs=(P(\"dd\"), P(\"dd\")),\n"
+     "                             out_specs=P(\"dd\"))\n"
+     "        def distribute_fn(x_blk, gv_blk):\n"
+     "            xg = jax.lax.all_gather(x_blk, \"dd\").reshape(-1)\n"
+     "            return xg[gv_blk[0]][None, :]\n"
+     "\n"
+     "        @jax.jit\n"
+     "        @lambda f: shard_map(f, mesh=mesh,\n"
+     "                             in_specs=(P(\"dd\"), P(\"dd\"), P(\"dd\")),\n"
+     "                             out_specs=P(\"dd\"))\n"
+     "        def assemble_fn(x_blk, contrib_blk, gv_blk):\n"
+     "            buf = jnp.zeros(ndev * n_loc + 1, x_blk.dtype).at[\n"
+     "                gv_blk[0]].add(contrib_blk[0])[:ndev * n_loc]\n"
+     "            tot = jax.lax.psum(buf.reshape(ndev, n_loc), \"dd\")\n"
+     "            me = jax.lax.axis_index(\"dd\")\n"
+     "            own = jax.lax.dynamic_slice_in_dim(\n"
+     "                tot.reshape(-1), me * n_loc, n_loc)\n"
+     "            return x_blk + own[None, :]\n",
+     "        gvirt = torch.as_tensor(gv).to(mesh.device)\n"
+     "\n"
+     "        def distribute_fn(x_blk, gv_blk):\n"
+     "            xg = torch.cat([x_blk.reshape(-1), x_blk.new_zeros(1)])\n"
+     "            return xg[gv_blk]\n"
+     "\n"
+     "        def assemble_fn(x_blk, contrib_blk, gv_blk):\n"
+     "            buf = x_blk.new_zeros(ndev * n_loc + 1).index_add_(\n"
+     "                0, gv_blk.reshape(-1), contrib_blk.reshape(-1))\n"
+     "            return x_blk + buf[:ndev * n_loc].reshape(ndev, n_loc)\n"),
+]
+
+# the documented edits of the port's models/weak_scaling.py: the rank
+# mesh's device
+WEAK_SCALING_EDITS = [
+    ("                             iters=30, dtype=None):\n",
+     "                             iters=30, dtype=None, device=None):\n"),
+    ("    counts while dofs grow with ranks.\"\"\"\n",
+     "    counts while dofs grow with ranks.  The ranks run as the batch axis\n"
+     "    of a parallel.sharding.RankMesh on `device` (None: the card).\"\"\"\n"),
+    ("        jmesh = make_dd_mesh(R)\n",
+     "        jmesh = make_dd_mesh(R, device=device)\n"),
+]
+
+
 @pytest.mark.parametrize("path,edits", [
     ("models/upscaling.py", UPSCALING_EDITS),
     ("models/maxwell.py", MAXWELL_EDITS),
     ("amge/sequence.py", SEQUENCE_EDITS),
-    ("amge/fespace3d_ho.py", HO_EDITS)],
-    ids=["upscaling", "maxwell", "sequence", "fespace3d_ho"])
+    ("amge/fespace3d_ho.py", HO_EDITS),
+    ("parallel/ghost.py", GHOST_EDITS),
+    ("models/weak_scaling.py", WEAK_SCALING_EDITS)],
+    ids=["upscaling", "maxwell", "sequence", "fespace3d_ho", "ghost",
+         "weak_scaling"])
 def test_copied_driver_equals_its_source(path, edits):
     with open(os.path.join(ROOT, "parelag_tpu", path)) as f:
         src = _rewritten(f.read())

@@ -101,7 +101,7 @@ def test_padded_a_goes_to_bcsr_on_the_card():
 
 @pytest.mark.parametrize("lane,stats,fmt", [
     # (rows, nonzeros, longest row, value bytes, JAX tile count) of each
-    # lane's operator on the card (kernel_profile --formats, PR 11)
+    # lane's operator on the H100 (kernel_profile --formats)
     ("ho_p2 A0", (117649, 11710909, 343, 4, 514745), "bcsr"),
     ("spe10 L1 SA A0", (32768, 3633870, 241, 4, 348160), "bcsr"),
     ("generic 64^3 A0", (274625, 6765657, 27, 4, 308961), "ell"),
@@ -114,7 +114,7 @@ def test_padded_a_goes_to_bcsr_on_the_card():
 ])
 def test_a_format_on_the_lanes_statistics(lane, stats, fmt):
     """ROADMAP C3 as a pure function: the padded ho_p2 A0 (3.45 slots a
-    nonzero) and SPE10 L1 A0 (2.17) take BCSR; the operators PRs 1-10
-    measured keep their formats."""
+    nonzero) and SPE10 L1 A0 (2.17) take BCSR; every other operator keeps
+    the format it had before the fill bound."""
     n, nnz, k, itemsize, tiles = stats
     assert th.a_format((n, n), nnz, k, itemsize, tiles) == fmt
