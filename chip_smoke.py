@@ -10,7 +10,9 @@
                                 # (and with RCM), the structured
                                 # engine's heterogeneous and Darcy
                                 # chains, the dist lane (8 ranks on
-                                # the card)
+                                # the card, in one process and in 2
+                                # and 4), a hierarchy checkpointed and
+                                # resumed
 
 1. Prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, and the time to build the hand-written kernels from
@@ -112,6 +114,29 @@
       and the steps' launches printed beside the card; x after the steps
       as close to the same steps on the CPU as twice f32's own error
       there (check_dist), and entry.dryrun_multichip(8) on the card.
+   n. the dist lane across processes, parallel.mp_worker.launch on the
+      card (backend_for's backend: gloo when the processes share the
+      card; each process holds its own ranks and sets them up from its
+      own patches): 2 processes at
+      ny_per_rank 4 and 32, 4 at 4, each timed as in m; every process's
+      level dofs and level tables (sha256) equal to m's one-process
+      lane, ell_spmv launched in its timed steps, x after the steps as
+      close to m's card run as twice f32's own error there (check_dist);
+      then the f64 solve case (the JAX package's tests/_mp_worker.py) in
+      2 processes: error against spsolve below 1e-10, equal digests and
+      level tables equal to mp_worker.solve_problem's here, and the setup
+      case (tests/_mp_setup_worker.py): the assembled
+      operators within 1e-13 (A) and 1e-14 (P) of the one-process setup.
+      The launches are the processes' own (each counts from 0).
+   o. checkpoint: the 96^3 flagship hierarchy of a (DIA A, bf16 BCSR P /
+      R, dense coarse inverse; with its bf16 cast) through
+      utils/checkpoint.save_pytree and load_pytree onto the card, its
+      PCG against the hierarchy it was saved from: equal iterations, x
+      within CKPT_X_LIMIT (the same kernels on the same bytes: equal is
+      expected); then the generic chain of c through save_transfers /
+      load_transfers, build_hierarchy on the card and PCG: iterations
+      within one of c's; the files' bytes and the save, load and solve
+      seconds printed.
    Then each slice at a small size on the card and on the CPU (plain
    versions) must agree: the flagship at 16^3, Maxwell at 6^3, the
    generic engine at 8^3 (the host backend on the CPU against the device
@@ -142,8 +167,11 @@
    (library_lane.kernel_operators: every operator of the form-0 AMGe
    hierarchy, BCSR transfers included, and the form-1 Hiptmair D0,
    A_aux0 and Krylov A0 in ELL), held at 1e-12.  The dist rows are
-   ell_spmv on the weak-scaled dist run's flat tables: every level's A
-   in the halo form and P's rows (dist_bench.level_operators).
+   ell_spmv on every flat table the dist paths launch it on: every
+   level's A in the halo form and P's rows (dist_bench.level_operators)
+   of m's lane at both sizes, of each process of n (its own ranks' rows,
+   whose row counts change the launch plan) and of n's f64 solve case
+   (dist_operators).
 4. Prints each phase's seconds, {"kernels": [...]} and, last,
    {"ok": true, "device": {...}}.
 
@@ -153,8 +181,10 @@ the script raises and prints no result.  It imports nothing of JAX.
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -169,14 +199,18 @@ from parelag_tpu_torch import (
 from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.amge import structured_spectral as sps
 from parelag_tpu_torch.models.multigrid import multigrid_test_form
-from parelag_tpu_torch.parallel import dist_bench
-from parelag_tpu_torch.parallel.sharding import make_dd_mesh
+from parelag_tpu_torch.parallel import dist_bench, mp_worker
+from parelag_tpu_torch.parallel.sharding import (
+    RankMesh, backend_for, make_dd_mesh)
 from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
-from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
+from parelag_tpu_torch.solvers.amge_solver import (
+    amge_pcg_solve, build_amge_hierarchy)
 from parelag_tpu_torch.ops.device_sparse import (
     from_scipy, l1_row_weights, to_bcsr, to_dia)
-from parelag_tpu_torch.solvers.hierarchy import level_operators
-from parelag_tpu_torch.solvers.smoothers import aux_operator
+from parelag_tpu_torch.solvers.hierarchy import (
+    build_hierarchy, level_operators, rap)
+from parelag_tpu_torch.solvers.smoothers import aux_operator, make_l1_jacobi
+from parelag_tpu_torch.utils import checkpoint
 
 # error limits, max |kernel - plain| / max |plain|: f32 outputs differ
 # only in summation order; bf16 outputs round to 2^-8 relative
@@ -233,6 +267,12 @@ A4_DARCY_LIMIT = 1e-12  # coarsen_darcy against the full chain's stages
 # the dist lane (parallel/dist_bench): bench.py's 8 ranks at its
 # ny_per_rank = 4 (11,781 dofs), then weak-scaled to 32 (91,749 dofs)
 DIST_RANKS, DIST_NY, DIST_STEPS = 8, (4, 32), 20
+# the same lane across processes: (processes, ny_per_rank)
+DIST_MP = ((2, 4), (2, 32), (4, 4))
+MP_WORLD = 2            # the processes of the mp solve and setup cases
+MP_SOLVE_LIMIT = 1e-10  # tests/_mp_worker.py's bound against spsolve
+MP_A_LIMIT, MP_P_LIMIT = 1e-13, 1e-14   # tests/_mp_setup_worker.py's
+CKPT_X_LIMIT = 1e-6     # the resumed flagship solve's x, relative
 
 # name -> (source, the TPU kernel it replaces (file:line), main path)
 SOURCES = {
@@ -266,24 +306,24 @@ JACOBI_NOTE = ("no single PyTorch call computes a fused Jacobi sweep "
                "x + dw * (b - A x)")
 
 
-def _ms(fn):
-    """Per-call time of fn() in ms: CUDA events around PER_BATCH
-    back-to-back calls, median over BATCHES (one warm-up call first).
+def _ms(fn, per_batch=PER_BATCH, batches=BATCHES):
+    """Per-call time of fn() in ms: CUDA events around per_batch
+    back-to-back calls, median over batches (one warm-up call first).
     Back to back, the host enqueues the next launch while the card runs
     the current one, so a kernel longer than its launch is timed by the
     card."""
     fn()
     torch.cuda.synchronize()
     ts = []
-    for _ in range(BATCHES):
+    for _ in range(batches):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        for _ in range(PER_BATCH):
+        for _ in range(per_batch):
             fn()
         e.record()
         e.synchronize()
-        ts.append(s.elapsed_time(e) / PER_BATCH)
+        ts.append(s.elapsed_time(e) / per_batch)
     return float(np.median(ts))
 
 
@@ -599,8 +639,9 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dist,
     nonzeros on the SA coarse levels) reach the kernels' tail
     handling.  library: the library lane's f64 operators
     (library_lane.kernel_operators).  ho: the high-order lane's (H, Hb,
-    host A0) (_ho_rows).  dist: the weak-scaled dist run's operators
-    (dist_bench.level_operators), as _op_rows."""
+    host A0) (_ho_rows).  dist: every table of the dist paths, the
+    one-process lane's and each process's (dist_operators), as
+    _op_rows."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
     _dia_rows(rows, A0, dev, rng)
@@ -1265,8 +1306,9 @@ def check_dist(runs, launches, smi):
     (two f32 runs each that far from the f64 one lie within twice it;
     the gap is 1.4e-5 at ny_per_rank 4 and 8.2e-4 at 32 on the CPU,
     where the f32 iteration loses more); then
-    dryrun_multichip(DIST_RANKS) on the card."""
-    fails = []
+    dryrun_multichip(DIST_RANKS) on the card.  Returns {ny_per_rank:
+    gap}."""
+    fails, gaps = [], {}
     cpu = make_dd_mesh(DIST_RANKS, "cpu")
     for rec, (hier, b, x) in runs:
         ny = rec["ny_per_rank"]
@@ -1275,6 +1317,7 @@ def check_dist(runs, launches, smi):
             for h in (hier, dist_bench.cast(hier, np.float64))]
         xc, x64 = xs
         gap = float(np.linalg.norm(xc - x64) / np.linalg.norm(x64))
+        gaps[ny] = gap
         dx = float(np.linalg.norm(x - xc) / np.linalg.norm(xc))
         print(f"  dist {DIST_RANKS} ranks ny_per_rank={ny} ({smi}): ndofs "
               f"{rec['ndofs']} levels {rec['level_ndofs']} setup_s "
@@ -1300,6 +1343,193 @@ def check_dist(runs, launches, smi):
     print(f"  dryrun_multichip({DIST_RANKS}) ok")
     if fails:
         raise SystemExit("FAIL dist path: " + "; ".join(fails))
+    return gaps
+
+
+def dist_operators(runs, solve_hier, dev):
+    """Every table the dist paths launch ell_spmv on, as (label,
+    EllMatrix) (dist_bench.level_operators): the one-process lane's at
+    each DIST_NY; at each DIST_MP each process's own ranks' rows (a
+    RankMesh of that world and rank: _level reads only the mesh's rank
+    range, so no group is needed; check_dist_mp holds the processes'
+    tables byte-equal to the one-process hierarchy these come from); and
+    each process's f64 tables of the mp solve case (solve_hier,
+    mp_worker.solve_problem's)."""
+    hiers = {rec["ny_per_rank"]: hier for rec, (hier, _, _) in runs}
+    meshes = [(f"1p ny{ny}", hier, make_dd_mesh(DIST_RANKS, dev))
+              for ny, hier in hiers.items()]
+    meshes += [(f"{world}p ny{ny} process {rank}", hiers[ny],
+                RankMesh(DIST_RANKS, dev, world=world, rank=rank))
+               for world, ny in DIST_MP for rank in range(world)]
+    meshes += [(f"solve {MP_WORLD}p process {rank}", solve_hier,
+                RankMesh(mp_worker.RANKS, dev, world=MP_WORLD, rank=rank))
+               for rank in range(MP_WORLD)]
+    return [(f"{tag} {label}", M) for tag, hier, mesh in meshes
+            for label, M in dist_bench.level_operators(
+                hier.device_args(mesh)[0])]
+
+
+def dist_mp_path(dev, tmp):
+    """mp_worker.launch of the dist case at every DIST_MP (x written
+    under tmp), then the solve and setup cases in 2 processes:
+    ({(world, ny): (records, x)}, solve records, setup records)."""
+    runs = {}
+    for world, ny in DIST_MP:
+        x_out = f"{tmp}/x_{world}_{ny}.npy"
+        recs = mp_worker.launch(world, "dist", ny, dev, DIST_STEPS, x_out,
+                                timeout=400)
+        runs[(world, ny)] = (recs, np.load(x_out))
+    return (runs,
+            mp_worker.launch(MP_WORLD, "solve", device=dev, timeout=200),
+            mp_worker.launch(MP_WORLD, "setup", device=dev, timeout=200))
+
+
+def mp_launches(records):
+    """The kernel launches of every process of every run, summed (each
+    process counts its own from 0)."""
+    return {k: sum(r["launches"][k] for r in records) for k in hk.LAUNCHES}
+
+
+def check_dist_mp(out, ref, solve_tables, smi):
+    """The processes' dist runs against the one-process lane (ref: ny ->
+    (level_ndofs, table digest, x, gap)), on the backend backend_for
+    picks for this host; the solve case against its bound and its tables
+    against solve_tables (the digest of mp_worker.solve_problem's
+    hierarchy in this process), the setup case against its bounds.  A
+    process's failure or timeout already raised in mp_worker.launch."""
+    runs, solve, setup = out
+    fails = []
+    for (world, ny), (recs, x) in runs.items():
+        ndofs, digest, x1, gap = ref[ny]
+        dx = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
+        for r in recs:
+            comm = ", ".join(f"{k} {v['calls']} in {v['s']:.4f} s"
+                             for k, v in r["comm"].items())
+            print(f"  dist_mp {world} processes ny_per_rank={ny} process "
+                  f"{r['rank']} ({smi}): backend {r['backend']} staged "
+                  f"{r['staged']} setup_s {r['setup_s']:.2f} step_s "
+                  f"{r['step_s']:.6f} value {r['value']:.4e} {r['unit']} "
+                  f"collectives {r['comm_s_per_step'] * 1e3:.3f} ms a "
+                  f"step, share {r['comm_share']:.3f} ({comm}), device busy "
+                  f"{r['device_busy_s_per_step'] * 1e3:.4f} ms a step (idle "
+                  f"{r['idle_share']:.3f}; top ms "
+                  + ", ".join(f"{k[:40]} {v:.4f}" for k, v in
+                              r["device_top_ms_per_step"].items())
+                  + f"; hand-kernel launches traced "
+                  f"{r['traced_launches']} of {r['launches_profiled']}), "
+                  f"rel_res {r['rel_res']:.3e}, timed kernels "
+                  f"{r['kernels']}")
+            backend = backend_for(r["device"], torch.cuda.device_count(),
+                                  world)
+            if (r["world"], r["backend"], r["imports_jax"]) != (
+                    world, backend, []):
+                fails.append(f"{world}/{ny}: {r['world']} "
+                             f"{r['backend']} {r['imports_jax']}")
+            if r["level_ndofs"] != ndofs or r["digest"] != digest:
+                fails.append(f"{world}/{ny} process {r['rank']}: levels "
+                             f"{r['level_ndofs']} (one process {ndofs}) "
+                             f"or the tables differ")
+            if r["kernels"]["ell_spmv"] <= 0:
+                fails.append(f"{world}/{ny} process {r['rank']}: no "
+                             "ell_spmv in the timed steps")
+        same = all(r["digest"] == digest for r in recs)
+        print(f"  dist_mp {world} processes ny_per_rank={ny}: tables equal "
+              f"the one-process lane's: {same}; x vs the one-process card "
+              f"run |dx|/|x| {dx:.3e} (limit 2 x {gap:.3e})")
+        if not dx <= 2 * gap:
+            fails.append(f"{world}/{ny}: x {dx} > 2 x {gap}")
+    for r in solve:
+        print(f"  mp solve process {r['rank']}: err {r['err']:.3e} (limit "
+              f"{MP_SOLVE_LIMIT:g}) digest {r['digest']:.12e} solve_s "
+              f"{r['solve_s']:.3f} ell_spmv {r['launches']['ell_spmv']}")
+        if not r["err"] < MP_SOLVE_LIMIT or r["launches"]["ell_spmv"] <= 0:
+            fails.append(f"solve process {r['rank']}: err {r['err']}")
+        if r["tables"] != solve_tables:
+            fails.append(f"solve process {r['rank']}: its tables differ "
+                         "from solve_problem's here")
+    if len({r["digest"] for r in solve}) != 1:
+        fails.append("solve: the processes' digests differ")
+    for r in setup:
+        print(f"  mp setup process {r['rank']}: ndofs {r['ndofs']} (one "
+              f"process {r['ref_ndofs']}) A_err {r['A_err']} P_err "
+              f"{r['P_err']}")
+        if not (r["ndofs"] == r["ref_ndofs"] and all(r["P_pattern"])
+                and max(r["A_err"]) < MP_A_LIMIT
+                and max(r["P_err"]) < MP_P_LIMIT):
+            fails.append(f"setup process {r['rank']}")
+    if fails:
+        raise SystemExit("FAIL dist_mp path: " + "; ".join(fails))
+
+
+def checkpoint_path(dev, h1_levels, gen, gen_iters, tmp):
+    """The flagship hierarchy (flagship.build_solver on the h1 path's
+    levels) saved and loaded onto the card, solved against the original;
+    the generic chain's transfers saved, loaded and solved.  Fails on
+    any check (see the module docstring, o)."""
+    from torch import nn
+    fails = []
+    A_levels, P_levels, b = h1_levels
+    H, Hb = flagship.build_solver(A_levels, P_levels, dev)
+    bt = torch.as_tensor(b.astype(np.float32)).to(dev)
+    path = f"{tmp}/flagship.pt"
+    t0 = time.perf_counter()
+    checkpoint.save_pytree(nn.ModuleList([H, Hb]), path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    H2, Hb2 = checkpoint.load_pytree(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x0, (it0, _) = flagship.solve(H, Hb, bt)
+    before = dict(hk.LAUNCHES)
+    x1, (it1, _) = flagship.solve(H2, Hb2, bt)
+    resumed = {k: hk.LAUNCHES[k] - before[k] for k in ONE_RHS}
+    dx = float((x1 - x0).abs().max() / x0.abs().max())
+    fresh_s, resumed_s = (_ms(lambda h=h: flagship.solve(*h, bt), 1, 3) / 1e3
+                          for h in ((H, Hb), (H2, Hb2)))
+    print(f"  flagship {NX}^3: file {os.path.getsize(path)} bytes, save_s "
+          f"{save_s:.3f} load_s {load_s:.3f}; iters fresh {int(it0)} "
+          f"resumed {int(it1)}, max |dx|/max |x| {dx:.3e} (limit "
+          f"{CKPT_X_LIMIT:g}), solve_s fresh {fresh_s:.5f} resumed "
+          f"{resumed_s:.5f}, the resumed solve's launches {resumed}")
+    if int(it1) != int(it0) or not dx <= CKPT_X_LIMIT:
+        fails.append(f"flagship: iters {int(it1)} vs {int(it0)}, dx {dx}")
+    if min(resumed.values()) <= 0:
+        fails.append(f"flagship: a kernel did not run resumed {resumed}")
+    A_gen, _, b_gen, _, seqs = gen
+    path = f"{tmp}/transfers.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_transfers(seqs, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint.load_transfers(path)
+    load_s = time.perf_counter() - t0
+    Ps = [lev["P"][0] for lev in back[:-1]]
+    t0 = time.perf_counter()
+    levels = [A_gen[0]]
+    for P in Ps:
+        levels.append(rap(levels[-1], P))
+    Hg = build_hierarchy(levels, Ps, lambda A, l: make_l1_jacobi(
+        sp.csr_matrix(A).astype(np.float32), sweeps=generic_lane.SWEEPS,
+        device=dev), dtype=np.float32, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    before = dict(hk.LAUNCHES)
+    x, (it, _) = amge_pcg_solve(Hg, Hg.levels[0].A, b_gen.astype(
+        np.float32), rtol=generic_lane.RTOL, atol=0.0,
+        maxiter=generic_lane.MAXITER, device=dev)
+    launched = {k: hk.LAUNCHES[k] - before[k] for k in hk.LAUNCHES}
+    rel = float(np.linalg.norm(b_gen - A_gen[0].astype(np.float64) @ x)
+                / np.linalg.norm(b_gen))
+    print(f"  generic {NX_GENERIC}^3 transfers: file {os.path.getsize(path)}"
+          f" bytes, save_s {save_s:.3f} load_s {load_s:.3f}, hierarchy "
+          f"build_s {build_s:.3f}; iters {int(it)} (the generic lane "
+          f"{gen_iters}) rel_res {rel:.3e}, launches {launched}")
+    if abs(int(it) - gen_iters) > 1:
+        fails.append(f"generic: iters {int(it)} vs {gen_iters}")
+    if launched["bcsr_spmv"] + launched["ell_spmv"] <= 0:
+        fails.append("generic: no kernel launched")
+    if fails:
+        raise SystemExit("FAIL checkpoint path: " + "; ".join(fails))
 
 
 def check_entry(dev):
@@ -1368,7 +1598,7 @@ def main():
     print("main path h1 (flagship.lane_h1, 1 and 16 RHS):")
     (rec, h1_levels), l_h1 = _path(
         "h1", lambda: flagship.lane_h1(NX, dev, n_rhs=N_RHS))
-    A_levels, P_levels, _ = h1_levels
+    A_levels, P_levels, h1_b = h1_levels
     mr = rec["multirhs"]
     print("  record: " + json.dumps(rec))
     print(f"  ndofs={rec['ndofs']} levels={rec['levels']} "
@@ -1417,9 +1647,10 @@ def main():
     t0 = time.perf_counter()
     print(f"main path generic (generic_lane.lane_generic({NX_GENERIC}), "
           "pass 2 on the card):")
-    (grec, (_, _, _, H_gen)), l_gen = _path(
+    (grec, gen), l_gen = _path(
         "generic", lambda: generic_lane.lane_generic(NX_GENERIC,
                                                      ("device",), dev))
+    H_gen = gen[3]
     print("  record: " + json.dumps(grec))
     print(f"  ndofs={grec['ndofs']} levels={grec['levels']} "
           f"formats={grec['formats']} transfers={grec['transfers']}")
@@ -1437,6 +1668,16 @@ def main():
           f"kernels={grec['kernels']}")
     check_generic(grec, l_gen)
     phase("generic", t0)
+
+    t0 = time.perf_counter()
+    print(f"main path checkpoint (utils/checkpoint: the {NX}^3 flagship "
+          f"hierarchy and the {NX_GENERIC}^3 generic chain's transfers, "
+          "resumed on the card):")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, l_ck = _path("checkpoint", lambda: checkpoint_path(
+            dev, (A_levels, P_levels, h1_b), gen, grec["iters"], tmp))
+    del gen, h1_b
+    phase("checkpoint", t0)
 
     t0 = time.perf_counter()
     print(f"main path darcy_hyb (darcy_lane.lane_darcy_hybridized("
@@ -1604,11 +1845,28 @@ def main():
     dist_runs, l_dist = _path("dist", lambda: dist_path(dev))
     for rec, _ in dist_runs:
         print("  record: " + json.dumps(rec))
-    check_dist(dist_runs, l_dist, smi)
-    dist_ops = dist_bench.level_operators(dist_runs[-1][1][0].device_args(
-        make_dd_mesh(DIST_RANKS, dev))[0])
+    gaps = check_dist(dist_runs, l_dist, smi)
+    solve_hier = mp_worker.solve_problem()[0]
+    dist_ops = dist_operators(dist_runs, solve_hier, dev)
+    dist_ref = {rec["ny_per_rank"]: (rec["level_ndofs"],
+                                     dist_bench.table_digest(hier), x,
+                                     gaps[rec["ny_per_rank"]])
+                for rec, (hier, _, x) in dist_runs}
     del dist_runs
     phase("dist", t0)
+
+    t0 = time.perf_counter()
+    print(f"main path dist_mp (parallel.mp_worker.launch: the dist lane in "
+          f"(processes, ny_per_rank) {DIST_MP}, then the solve and setup "
+          "cases in 2 processes, all on the card):")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_mp, _ = _path("dist_mp", lambda: dist_mp_path(dev, tmp))
+    l_dmp = mp_launches([r for recs, _ in dist_mp[0].values() for r in recs]
+                        + dist_mp[1] + dist_mp[2])
+    print(f"  launches in the processes of the dist_mp path: {l_dmp}")
+    check_dist_mp(dist_mp, dist_ref, dist_bench.table_digest(solve_hier), smi)
+    del dist_mp, dist_ref, solve_hier
+    phase("dist_mp", t0)
 
     t0 = time.perf_counter()
     small_check(dev)
@@ -1637,7 +1895,8 @@ def main():
                    "spe10_structured": l_sx[name],
                    "spe10_full": l_sf[name], "spe10_ml": l_ml[name],
                    "ho": l_ho[name], "rcm": l_rcm[name],
-                   "structured_a4": l_a4[name], "dist": l_dist[name]}
+                   "structured_a4": l_a4[name], "dist": l_dist[name],
+                   "dist_mp": l_dmp[name], "checkpoint": l_ck[name]}
         kernels.append(dict(
             name=name, path=path, route="cuda", source=src,
             replaces=replaces,

@@ -43,13 +43,15 @@ def synchronize(dev):
         torch.cuda.synchronize(dev)
 
 
-# the XML solver library, loaded at first use (as the JAX package's
-# lazy exports) so that importing the package stays light
+# the XML solver library and the checkpoint functions, loaded at first
+# use (as the JAX package's lazy exports) so that importing the package stays light
 _LAZY = {
     "SolverLibrary": ("parelag_tpu_torch.solvers.library", "SolverLibrary"),
     "SolverState": ("parelag_tpu_torch.solvers.library", "SolverState"),
     "ParameterList": ("parelag_tpu_torch.utils.params", "ParameterList"),
     "read_xml": ("parelag_tpu_torch.utils.params", "read_xml"),
+    "save_pytree": ("parelag_tpu_torch.utils.checkpoint", "save_pytree"),
+    "load_pytree": ("parelag_tpu_torch.utils.checkpoint", "load_pytree"),
 }
 
 

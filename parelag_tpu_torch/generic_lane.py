@@ -144,8 +144,8 @@ def lane_generic(nx=NX, backends=("device",), device=None,
     solves (CUDA events on the card, the host clock on the CPU; the
     median is solve_s), `kernels` = the hand-kernel launches of the
     timed solves, and the host f64 anchor on the same matrices.  Returns
-    (record, (A_levels, P_levels, b, H)), H the f32 hierarchy the solve
-    ran; device None: the card."""
+    (record, (A_levels, P_levels, b, H, seqs)), H the f32 hierarchy the
+    solve ran, seqs its DeRhamSequence chain; device None: the card."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
     if on_card:
@@ -233,7 +233,7 @@ def lane_generic(nx=NX, backends=("device",), device=None,
         host_iters=ith, host_solve_s=host_dt,
         host_dof_iter_per_s=ndofs * ith / host_dt, kernels=kernels)
     out["vs_baseline"] = out["dof_iter_per_s"] / out["host_dof_iter_per_s"]
-    return out, (A_levels, P_levels, b, H)
+    return out, (A_levels, P_levels, b, H, seqs)
 
 
 def main(argv=None):

@@ -12,7 +12,9 @@ layout (owner * n_loc + slot, the parallel.sharding convention):
   parallel.sharding.RankMesh (the ranks as the leading axis of one
   tensor): distribute = ghost-slot gather from the flattened blocks;
   assemble = scatter-add into the virtual layout, summed over ranks
-  (SharingMap.Assemble's additive reduction).
+  (SharingMap.Assemble's additive reduction).  Across processes each
+  holds its ranks' blocks: distribute = all_gather + ghost-slot gather;
+  assemble = scatter-add + all_reduce, this process's blocks kept.
 
 Validated host == device == hand summation by tests/test_ghost.py.
 """
@@ -74,7 +76,8 @@ class GhostMap:
     def device_fns(self, mesh):
         """(gvirt, distribute_fn, assemble_fn) on mesh.device (a
         parallel.sharding.RankMesh). Block layout: (ndev, n_loc) owned
-        values; ghosts padded to the max ghost count (validity mask from
+        values (the mesh.own rows of them in a process group); ghosts
+        padded to the max ghost count (validity mask from
         `ghost_mask()`); padded slots point at a scratch slot: a padded
         ghost reads 0, a padded contribution is discarded."""
         import torch
@@ -87,16 +90,18 @@ class GhostMap:
         gv = np.full((self.ndev, m_g), ndev * n_loc, dtype=np.int64)
         for r, g in enumerate(self.ghosts):
             gv[r, :g.size] = self.virt[g]
-        gvirt = torch.as_tensor(gv).to(mesh.device)
+        gvirt = torch.as_tensor(gv[mesh.own]).to(mesh.device)
 
         def distribute_fn(x_blk, gv_blk):
-            xg = torch.cat([x_blk.reshape(-1), x_blk.new_zeros(1)])
+            xg = torch.cat([mesh.all_gather(x_blk).reshape(-1),
+                            x_blk.new_zeros(1)])
             return xg[gv_blk]
 
         def assemble_fn(x_blk, contrib_blk, gv_blk):
             buf = x_blk.new_zeros(ndev * n_loc + 1).index_add_(
                 0, gv_blk.reshape(-1), contrib_blk.reshape(-1))
-            return x_blk + buf[:ndev * n_loc].reshape(ndev, n_loc)
+            tot = mesh.all_reduce(buf[:ndev * n_loc])
+            return x_blk + tot.reshape(ndev, n_loc)[mesh.own]
 
         return gvirt, distribute_fn, assemble_fn
 

@@ -8,7 +8,9 @@ SVDs of trace targets, saddle-point solves of the extensions -- SURVEY.md
 device under shard_map; here every rank's padded batch is one slice of
 one stacked batch on the rank mesh's device (parallel.sharding.RankMesh),
 solved by one batched torch.linalg call in the inputs' dtype (the JAX
-package's jnp.linalg, no Pallas kernel).
+package's jnp.linalg, no Pallas kernel).  In a process group each process
+passes and solves the batches of the mesh.n_own ranks it holds (a
+shard_map body has no collective here either).
 """
 
 import numpy as np
@@ -33,9 +35,9 @@ def pad_rank_batches(batches, n_devices):
 def sharded_batched_svd(batches, mesh):
     """Thin SVD of every matrix in every rank's batch: one batched
     torch.linalg.svd over the padded (ndev * m_max, n, t) stack on
-    mesh.device.  batches: list of (m_r, n, t) arrays, len <= mesh.ndev.
+    mesh.device.  batches: list of (m_r, n, t) arrays, len <= mesh.n_own.
     Returns per-rank lists of (U, s) (padding removed)."""
-    n_devices = mesh.ndev
+    n_devices = mesh.n_own
     stacked, counts, m_max = pad_rank_batches(batches, n_devices)
     # padded (all-zero) members produce zero factors -- harmless
     U, s, _ = torch.linalg.svd(torch.as_tensor(stacked).to(mesh.device),
@@ -51,9 +53,9 @@ def sharded_solve_groups(As, Bs, mesh):
     """Per-rank batched dense solves: As[r] (m_r, k, k), Bs[r] (m_r, k,
     s) -> Xs[r]; one batched torch.linalg.solve over the padded stack on
     mesh.device (the extension-stage saddle solves of dist_coarsen under
-    device execution).  Padded members solve an identity system
-    (harmless)."""
-    n_devices = mesh.ndev
+    device execution; len(As) <= mesh.n_own).  Padded members solve an
+    identity system (harmless)."""
+    n_devices = mesh.n_own
     R = len(As)
     k = As[0].shape[1]
     s = Bs[0].shape[2]

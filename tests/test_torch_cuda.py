@@ -857,3 +857,75 @@ def test_rank_batched_step_on_card_matches_cpu(card):
             x64 = dist_bench.steps_from_zero(dist_bench.cast(
                 hier, np.float64), b, make_dd_mesh(2, cpu))(1)[0]
             assert _rel(g[0], c[0]) <= 2 * _rel(c[0], x64)
+
+
+@pytest.mark.cuda
+def test_checkpoint_reload_on_card(card, tmp_path):
+    """The 16^3 flagship hierarchy (DIA A, bf16 BCSR transfers) saved and
+    loaded onto the card: the same BCSR launch group, a bitwise equal
+    bf16 cycle, the same kernels launched."""
+    from torch import nn
+    from parelag_tpu_torch import flagship
+    from parelag_tpu_torch.utils import checkpoint
+    A, P, b = flagship.build_h1_structured(16, 64, device=card)
+    H, Hb = flagship.build_solver(A, P, card)
+    path = tmp_path / "h.pt"
+    checkpoint.save_pytree(nn.ModuleList([H, Hb]), str(path))
+    H2, Hb2 = checkpoint.load_pytree(str(path))
+    assert Hb2.levels[0].P.group == Hb.levels[0].P.group
+    r = torch.as_tensor(b.astype(np.float32)).to(card).to(torch.bfloat16)
+    counts = []
+    ys = []
+    for h in (Hb, Hb2):
+        before = dict(hk.LAUNCHES)
+        ys.append(h.apply(r))
+        torch.cuda.synchronize()
+        counts.append({k: hk.LAUNCHES[k] - before[k] for k in hk.LAUNCHES})
+    assert torch.equal(ys[0], ys[1])
+    assert counts[0] == counts[1] and counts[0]["dia_jacobi_sweep"] > 0
+    assert counts[0]["bcsr_spmv"] > 0
+
+
+@pytest.mark.cuda
+def test_multiprocess_solve_on_card(card):
+    """tests/_mp_worker.py's f64 solve in 2 processes (on one card: gloo,
+    both on it): the error against spsolve, equal digests, every
+    process's products in ell_spmv."""
+    from parelag_tpu_torch.parallel import mp_worker
+    from parelag_tpu_torch.parallel.sharding import backend_for
+    recs = mp_worker.launch(2, "solve", timeout=300)
+    assert all(r["err"] < 1e-10 for r in recs), recs
+    assert len({r["digest"] for r in recs}) == 1
+    backend = backend_for(card, torch.cuda.device_count(), 2)
+    assert all(r["launches"]["ell_spmv"] > 0 and r["backend"] == backend
+               and r["device"].startswith("cuda") for r in recs)
+
+
+@pytest.mark.cuda
+def test_multiprocess_nccl_on_cards(card, tmp_path):
+    """A card a process (NCCL; skips on fewer than 4 cards): the f64
+    solve in 4 processes, and the dist lane in 2, each process setting
+    up its own ranks: the one-process lane's tables byte for byte, x
+    within twice f32's own error (on the CPU) of the one-process run."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    from parelag_tpu_torch.parallel import dist_bench, mp_worker
+    from parelag_tpu_torch.parallel.sharding import make_dd_mesh
+    recs = mp_worker.launch(4, "solve", timeout=300)
+    assert [r["device"] for r in recs] == [f"cuda:{r}" for r in range(4)]
+    assert all(r["backend"] == "nccl" and r["err"] < 1e-10 for r in recs)
+    assert len({r["digest"] for r in recs}) == 1
+    x_out = tmp_path / "x.npy"
+    recs = mp_worker.launch(2, "dist", 4, steps=5, x_out=x_out,
+                            timeout=300)
+    _, hier, b = dist_bench.build(8, 4)
+    assert all(r["backend"] == "nccl" and r["kernels"]["ell_spmv"] > 0
+               and r["digest"] == dist_bench.table_digest(hier)
+               for r in recs)
+    x1 = dist_bench.time_steps(hier, b, make_dd_mesh(8, card), 5)[0]
+    cpu = make_dd_mesh(8, "cpu")
+    xc, x64 = (dist_bench.time_steps(h, b, cpu, 5)[0]
+               for h in (hier, dist_bench.cast(hier, np.float64)))
+    gap = np.linalg.norm(xc - x64) / np.linalg.norm(x64)
+    x = np.load(x_out)
+    assert np.linalg.norm(x - x1) / np.linalg.norm(x1) <= 2 * gap

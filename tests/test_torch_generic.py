@@ -266,7 +266,7 @@ def test_lane_generic_on_the_cpu():
     coarse dimensions, the H1 dims of the JAX bench's _build_h1, and the
     solve within one iteration of the host anchor at its rtol."""
     import bench
-    rec, (A_levels, P_levels, b, _) = generic_lane.lane_generic(
+    rec, (A_levels, P_levels, b, _, _) = generic_lane.lane_generic(
         8, ("host", "device"), device="cpu", min_coarse=8)
     seqs_j, Aj, bj = bench._build_h1(8, min_coarse=8, setup_dtype=None)
     assert rec["dims_agree"] and rec["levels"] == 3

@@ -29,6 +29,12 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "parelag_tpu"))
 print(len(mods), bad)
 assert not bad, bad
+assert {"parelag_tpu_torch.parallel.mp_worker",
+        "parelag_tpu_torch.utils.checkpoint"} <= set(mods), mods
+assert parelag_tpu_torch.load_pytree and parelag_tpu_torch.save_pytree
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "parelag_tpu"))
+assert not bad, bad
 """
 
 
@@ -101,7 +107,8 @@ def _entry_points():
     from parelag_tpu_torch.amge.hybridization import HybridHdivL2
     from parelag_tpu_torch.models import (
         maxwell, multigrid, upscaling, weak_scaling)
-    from parelag_tpu_torch.parallel import dist_bench, sharding
+    from parelag_tpu_torch.parallel import dist_bench, mp_worker, sharding
+    from parelag_tpu_torch.utils import checkpoint
     from parelag_tpu_torch.ops import batched, device_sparse as ds
     from parelag_tpu_torch.solvers import (
         amge_solver, autotune, block, cg, hierarchy, library, sa_amg,
@@ -201,6 +208,11 @@ def _entry_points():
             lambda: upscaling.build_hierarchy(nref_parallel=1,
                                               backend="device"),
         "sharding.make_dd_mesh": lambda: sharding.make_dd_mesh(2),
+        "sharding.make_dd_mesh(group=)":
+            lambda: sharding.make_dd_mesh(2, group=object()),
+        "mp_worker.launch": lambda: mp_worker.launch(2, "solve"),
+        "checkpoint.load_pytree":
+            lambda: checkpoint.load_pytree("missing.pt"),
         "dist_bench.distributed_solve_bench":
             lambda: dist_bench.distributed_solve_bench(2),
         "entry.dryrun_multichip": lambda: entry.dryrun_multichip(2),

@@ -295,7 +295,9 @@ GHOST_EDITS = [
      "  parallel.sharding.RankMesh (the ranks as the leading axis of one\n"
      "  tensor): distribute = ghost-slot gather from the flattened blocks;\n"
      "  assemble = scatter-add into the virtual layout, summed over ranks\n"
-     "  (SharingMap.Assemble's additive reduction).\n"),
+     "  (SharingMap.Assemble's additive reduction).  Across processes each\n"
+     "  holds its ranks' blocks: distribute = all_gather + ghost-slot gather;\n"
+     "  assemble = scatter-add + all_reduce, this process's blocks kept.\n"),
     ("    def device_fns(self, mesh):\n"
      "        \"\"\"(gvirt, distribute_fn, assemble_fn) as jitted shard_map\n"
      "        collectives. Block layout: (ndev, n_loc) owned values; ghosts\n"
@@ -309,7 +311,8 @@ GHOST_EDITS = [
      "    def device_fns(self, mesh):\n"
      "        \"\"\"(gvirt, distribute_fn, assemble_fn) on mesh.device (a\n"
      "        parallel.sharding.RankMesh). Block layout: (ndev, n_loc) owned\n"
-     "        values; ghosts padded to the max ghost count (validity mask from\n"
+     "        values (the mesh.own rows of them in a process group); ghosts\n"
+     "        padded to the max ghost count (validity mask from\n"
      "        `ghost_mask()`); padded slots point at a scratch slot: a padded\n"
      "        ghost reads 0, a padded contribution is discarded.\"\"\"\n"
      "        import torch\n"),
@@ -335,16 +338,18 @@ GHOST_EDITS = [
      "            own = jax.lax.dynamic_slice_in_dim(\n"
      "                tot.reshape(-1), me * n_loc, n_loc)\n"
      "            return x_blk + own[None, :]\n",
-     "        gvirt = torch.as_tensor(gv).to(mesh.device)\n"
+     "        gvirt = torch.as_tensor(gv[mesh.own]).to(mesh.device)\n"
      "\n"
      "        def distribute_fn(x_blk, gv_blk):\n"
-     "            xg = torch.cat([x_blk.reshape(-1), x_blk.new_zeros(1)])\n"
+     "            xg = torch.cat([mesh.all_gather(x_blk).reshape(-1),\n"
+     "                            x_blk.new_zeros(1)])\n"
      "            return xg[gv_blk]\n"
      "\n"
      "        def assemble_fn(x_blk, contrib_blk, gv_blk):\n"
      "            buf = x_blk.new_zeros(ndev * n_loc + 1).index_add_(\n"
      "                0, gv_blk.reshape(-1), contrib_blk.reshape(-1))\n"
-     "            return x_blk + buf[:ndev * n_loc].reshape(ndev, n_loc)\n"),
+     "            tot = mesh.all_reduce(buf[:ndev * n_loc])\n"
+     "            return x_blk + tot.reshape(ndev, n_loc)[mesh.own]\n"),
 ]
 
 # the documented edits of the port's models/weak_scaling.py: the rank

@@ -5,7 +5,7 @@ give JAX's shard_map solves on the 8-device CPU mesh within 1e-10 (f64)
 on the inputs of tests/test_parallel.py, and the direct solve at that
 file's own bounds.  Also GhostMap, the rank-batched setup solves
 (tests/test_dist_coarsen.py's case), the rank mesh and its multi-process
-guard, and the copied host functions of sharding / shard_setup."""
+rule, and the copied host functions of sharding / shard_setup."""
 
 import inspect
 import re
@@ -294,14 +294,32 @@ def test_rank_batched_setup_solves():
 
 
 def test_rank_mesh_and_the_multiprocess_guard(monkeypatch):
-    """make_dd_mesh is the rank axis on one device; an environment that
-    asks for several processes is refused (ROADMAP A12c), never run in
-    one."""
+    """make_dd_mesh is the rank axis on one device: without the process
+    variables it is one process; a WORLD_SIZE above 1 with one of them
+    missing raises naming it (the run never quietly becomes one
+    process); a rank count that the process count does not divide is
+    refused."""
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     mesh = T.make_dd_mesh(8, "cpu")
     assert (mesh.ndev, mesh.axis_names, mesh.device.type) == (
         8, ("dd",), "cpu")
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
-    T.ensure_distributed_initialized()
+    assert (mesh.world, mesh.rank, mesh.n_own, mesh.own) == (
+        1, 0, 8, slice(0, 8))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=re.escape("A12c")):
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
         T.make_dd_mesh(2, "cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.setattr(T.dist, "get_world_size", lambda group: 2)
+    monkeypatch.setattr(T.dist, "get_rank", lambda group: 1)
+    with pytest.raises(ValueError, match="divide"):
+        T.make_dd_mesh(3, "cpu", group=object())
+    mesh = T.make_dd_mesh(8, "cpu", group=object())
+    assert (mesh.world, mesh.rank, mesh.n_own, mesh.own) == (
+        2, 1, 4, slice(4, 8))
+    # NCCL only with a card a process
+    assert [T.backend_for(d, c, p) for d, c, p in (
+        ("cpu", 0, 2), ("cuda", 1, 2), ("cuda", 1, 4), ("cuda", 4, 4),
+        ("cuda", 4, 2))] == ["gloo", "gloo", "gloo", "nccl", "nccl"]
