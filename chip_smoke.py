@@ -146,7 +146,9 @@
    CPU: x within 1e-6) and spe10_darcy at (8, 8, 4) (u_l2_rel within
    1e-6, u within 1e-6 of its largest entry).
 3. Kernel phase: each kernel against its plain PyTorch version on the
-   card at the main paths' shapes (the generic, SA and block
+   card at the main paths' shapes (the flagship's DIA levels A0, A1 and
+   A2 in f32 and bf16 for the 1-RHS DIA pair, each row tagged with its
+   launch plan, hopper_kernels.dia_row_plan; the generic, SA and block
    hierarchies: every operator their cycles apply, in the format the
    path gave it), with the max relative error and its
    limit, and the times (CUDA events, median) of the kernel, the plain
@@ -163,7 +165,9 @@
    and its bf16 BCSR P0 / R0, each with bound_slots_ms beside bound_ms:
    the stored format's stream (format_bytes) over the memory rate.
    The SPE10 rows include every level's SA hierarchy of the generic
-   SPE10 lane (e), BCSR transfers included; the library rows are f64
+   SPE10 lane (e), BCSR transfers included, and dia_spmv on the DIA part
+   of each level's outer operator, tagged with its plan (f32, at the
+   f32 limit); the library rows are f64
    (library_lane.kernel_operators: every operator of the form-0 AMGe
    hierarchy, BCSR transfers included, and the form-1 Hiptmair D0,
    A_aux0 and Krylov A0 in ELL), held at 1e-12.  The dist rows are
@@ -400,38 +404,57 @@ def _plan_tag(D, sweep):
             f"smem={p.smem_bytes}")
 
 
-def _dia_rows(rows, A0, dev, rng):
-    """The DIA kernels, 1 and N_RHS columns, f32 and bf16, on the fine
-    flagship operator.  The function needs A0's nonzeros and the
+def _row_tag(D, sweep):
+    """The launch plan of the 1-RHS DIA kernels on D: rows a thread,
+    threads, tiles, what a tile stages, shared bytes."""
+    n, m = D.shape
+    return hk.dia_row_plan(D.offs, n, m, D.dtype, sweep).tag()
+
+
+def _dia_rows(rows, A_levels, dev, rng):
+    """The DIA kernels on the flagship's DIA levels, f32 and bf16: the
+    1-RHS pair on A0, A1 and A2 (the cycle's levels; A0 first), the
+    N_RHS-column pair on A0.  The function needs the nonzeros and the
     offsets (the stencil holds the structure)."""
-    n, nnz = A0.shape[0], int(A0.count_nonzero())
-    dw = torch.as_tensor((1.0 / l1_row_weights(A0)).astype(np.float32))
+    for level, A in enumerate(A_levels[:3]):
+        _dia_level_rows(rows, level, A, dev, rng)
+
+
+def _dia_level_rows(rows, level, A, dev, rng):
+    n, nnz = A.shape[0], int(A.count_nonzero())
+    dw = torch.as_tensor((1.0 / l1_row_weights(A)).astype(np.float32))
     v1 = [torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
           for _ in range(2)]
     vs = [torch.as_tensor(rng.randn(n, N_RHS).astype(np.float32)).to(dev)
-          for _ in range(2)]
+          for _ in range(2)] if level == 0 else None
     for dt in (torch.float32, torch.bfloat16):
-        D = to_dia(A0, dt, dev)
+        D = to_dia(A, dt, dev)
         nd, tag = len(D.offs), _TAG[dt]
-        csr = _csr(A0, dt, dev)
+        csr = _csr(A, dt, dev)
         d = dw.to(dev).to(dt)
         x, b = (v.to(dt) for v in v1)
-        X, B = (v.to(dt) for v in vs)
         mat = nnz * x.element_size() + 4 * nd
-        fl1, fls = 2 * nnz, 2 * nnz * N_RHS
-        ps, pj = (_plan_tag(D, sweep) for sweep in (False, True))
+        fl1 = 2 * nnz
         rows["dia_spmv"].append(_compare(
-            "dia_spmv", f"A0 {tag} nd={nd} n={n}",
+            "dia_spmv", f"A{level} {tag} nd={nd} n={n} "
+            f"{_row_tag(D, False)}",
             lambda: hk.dia_spmv(D.data, D.offs, x, n),
             lambda: hk.dia_spmv_plain(D.data, D.offs, x, n),
             mat + _nbytes(x, x), fl1, _nbytes(D.data, x, x),
             lambda: csr @ x))
         rows["dia_jacobi_sweep"].append(_compare(
-            "dia_jacobi_sweep", f"A0 {tag} one sweep n={n}",
+            "dia_jacobi_sweep", f"A{level} {tag} one sweep n={n} "
+            f"{_row_tag(D, True)}",
             lambda: hk.dia_jacobi_sweep(D.data, D.offs, x, b, d),
             lambda: hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, d),
             mat + _nbytes(x, b, d, x), fl1 + 3 * n,
             _nbytes(D.data, x, b, d, x), library_note=JACOBI_NOTE))
+        if vs is None:
+            del D, csr
+            continue
+        X, B = (v.to(dt) for v in vs)
+        fls = 2 * nnz * N_RHS
+        ps, pj = (_plan_tag(D, sweep) for sweep in (False, True))
         rows["dia_spmv_multirhs"].append(_compare(
             "dia_spmv_multirhs", f"A0 {tag} nd={nd} n={n} s={N_RHS} {ps}",
             lambda: hk.dia_spmv_multirhs(D.data, D.offs, X, n),
@@ -516,8 +539,8 @@ def _ell_rows(rows, mats, dev, rng):
         del E, csr
 
 
-def _darcy_dia_rows(rows, Hd, dev, rng):
-    """dia_spmv on the DIA part of the darcy path's outer operator Hd (a
+def _darcy_dia_rows(rows, Hd, dev, rng, label="darcy Hd"):
+    """dia_spmv on the DIA part of a darcy path's outer operator Hd (a
     DiaEllMatrix: f32, its offsets and rows, as the path gives them)."""
     D = Hd.dia
     n, nd = D.shape[0], len(D.offs)
@@ -525,7 +548,8 @@ def _darcy_dia_rows(rows, Hd, dev, rng):
     nnz = int(csr.values().count_nonzero())
     x = torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
     rows["dia_spmv"].append(_compare(
-        "dia_spmv", f"darcy Hd DIA part f32 nd={nd} n={n} nnz={nnz}",
+        "dia_spmv", f"{label} DIA part f32 nd={nd} n={n} nnz={nnz} "
+        f"{_row_tag(D, False)}",
         lambda: hk.dia_spmv(D.data, D.offs, x, n),
         lambda: hk.dia_spmv_plain(D.data, D.offs, x, n),
         nnz * 4 + 4 * nd + _nbytes(x, x), 2 * nnz, _nbytes(D.data, x, x),
@@ -623,16 +647,18 @@ def _ho_rows(rows, H, Hb, A0, dev, rng):
         del csr
 
 
-def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dist,
-                 dev):
+def kernel_phase(h1_A, P0, maxwell, generic, darcy, spe10, library, ho,
+                 dist, dev):
     """Each kernel against its plain version at the main paths' shapes,
-    on random inputs from a fixed seed.  maxwell: the lane's (A_levels,
+    on random inputs from a fixed seed.  h1_A: the flagship's host
+    operators (the DIA rows, _dia_rows).  maxwell: the lane's (A_levels,
     P_levels, D0): its level-0 operator and transfers in f32 BCSR, as
     the lane's hierarchy holds them, and Hiptmair's level-0 ELL
     matrices.  generic: the generic lane's f32 hierarchy.  darcy: (the
     darcy_hyb path's outer DiaEllMatrix, its SA-AMG hierarchy, the block
-    lane's f64 hierarchy): dia_spmv on the DIA part.  spe10: the SA
-    hierarchy of every level of the SPE10 lane.  Each hierarchy
+    lane's f64 hierarchy): dia_spmv on the DIA part.  spe10: (the SA
+    hierarchy, the outer operator) of every level of the SPE10 lane:
+    dia_spmv on each outer operator's DIA part too.  Each hierarchy
     gives a row for every operator its cycle applies, in the format the
     path gave it (_op_rows): ELL on the generic A0, the SA A0, A1 and P0
     and every block level, BCSR on the rest, whose uneven rows (~100-600
@@ -644,7 +670,7 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dist,
     _op_rows."""
     rng = np.random.RandomState(0)
     rows = {k: [] for k in SOURCES}
-    _dia_rows(rows, A0, dev, rng)
+    _dia_rows(rows, h1_A, dev, rng)
     Hd, H_sa, H_block = darcy
     _darcy_dia_rows(rows, Hd, dev, rng)
     A_levels, P_levels, D0 = maxwell
@@ -665,7 +691,9 @@ def kernel_phase(A0, P0, maxwell, generic, darcy, spe10, library, ho, dist,
     _op_rows(rows, "generic", level_operators(generic), dev, rng)
     _op_rows(rows, "darcy SA", level_operators(H_sa), dev, rng)
     _op_rows(rows, "darcy block", level_operators(H_block), dev, rng)
-    for l, H in enumerate(spe10):
+    for l, (H, Hd) in enumerate(spe10):
+        if hasattr(Hd, "dia"):
+            _darcy_dia_rows(rows, Hd, dev, rng, f"spe10 L{l} Hd")
         _op_rows(rows, f"spe10 L{l} SA", level_operators(H), dev, rng)
     _op_rows(rows, "library", library, dev, rng)
     _ho_rows(rows, *ho, dev, rng)
@@ -1708,7 +1736,9 @@ def main():
     sref, sout_ref = darcy_lane.lane_spe10(SPE10_CELLS, "cpu")
     print(f"  the same lane on the CPU: {time.perf_counter() - t0:.1f} s")
     check_spe10(srec, sout, sref, sout_ref, l_sp)
-    spe10_H = [H for H in sout["device_hierarchies"] if H is not None]
+    spe10_H = [(H, Hd) for H, Hd in zip(sout["device_hierarchies"],
+                                        sout["device_operators"])
+               if H is not None]
     print(f"  SA transfers per level: "
           f"{[d['sa_transfers'] for d in srec['device_solves']]}")
     del sout, sout_ref
@@ -1879,9 +1909,13 @@ def main():
     # ---- kernel phase ------------------------------------------------
     t0 = time.perf_counter()
     print("kernel phase (kernel vs plain on the card):")
-    rows = kernel_phase(A_levels[0], P_levels[0], (MA, MP, MD0), H_gen,
+    rows = kernel_phase(A_levels, P_levels[0], (MA, MP, MD0), H_gen,
                         (darcy_Hd, darcy_H, block_H), spe10_H, lib_ops,
                         (ho_H, ho_Hb, ho_A), dist_ops, dev)
+    if l_sp["dia_spmv"] and not any(r["variant"].startswith("spe10")
+                                    for r in rows["dia_spmv"]):
+        raise SystemExit("FAIL kernels: the SPE10 path launched dia_spmv "
+                         "on no operator held against its plain version")
     phase("kernels", t0)
     kernels = []
     for name, (src, replaces, path) in SOURCES.items():

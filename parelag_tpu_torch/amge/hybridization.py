@@ -405,7 +405,8 @@ class HybridHdivL2:
         stalls near its dtype floor); f64: one pass at rtol.  Sets
         last_iterations (all passes), last_passes, last_device (the
         solve's iterations, passes, true relative residual in host f64
-        and formats) and last_hierarchy (its SA hierarchy)."""
+        and formats), last_hierarchy (its SA hierarchy) and last_operator
+        (the device operator its PCG applies)."""
         from parelag_tpu_torch.solvers.cg import pcg
         device = resolve_device(device)
         n = Hcsr.shape[0]
@@ -435,6 +436,7 @@ class HybridHdivL2:
         self.last_iterations = total_it
         self.last_passes = passes
         self.last_hierarchy = Hier
+        self.last_operator = Hd
         # what a lane reports of this solve (a later host solve on the
         # same object overwrites last_iterations, never this)
         self.last_device = dict(

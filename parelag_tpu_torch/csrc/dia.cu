@@ -1,145 +1,535 @@
 // DIA (diagonal / shift) SpMV and the fused weighted-Jacobi sweep, for
 // one right-hand side and for s of them.
 //
-// Replaces parelag_tpu/ops/pallas_kernels.py::dia_spmv_pallas,
-// ::dia_jacobi_sweep_pallas, ::dia_spmv_multirhs_pallas and
-// ::dia_jacobi_sweep_multirhs_pallas.  The table is row aligned:
-// data[d * ld + i] multiplies x[i + offs[d]].  On the TPU the kernels
-// kept a padded x in VMEM and took static slices of a 1024-aligned
-// superblock; here each thread of the 1-RHS kernels owns one row, reads
-// its nd coefficients (neighbouring threads on neighbouring addresses, so
-// every table read is one coalesced stream) and gathers x[i + off] with a
-// bounds check instead of a padded x.  The s-column kernels below stage
-// the X rows of a tile in shared memory first (see there).
-//
-// Bound on Hopper: device-memory bytes.  A matvec reads the nd x n table
-// once (nd = 27 on the H1 grid) plus x and y; the nd shifted x reads of
-// a block mostly hit L1/L2, since on an N^3 cell grid the offsets span
-// only +-((N+1)^2 + (N+1) + 1) rows.  Two flops per table entry sit far
-// below the card's compute roofline.
-//
-// The offsets travel by value in a __grid_constant__ struct (nd <= 64,
-// the most to_dia_ell keeps for the DIA part of a DiaEllMatrix; the
-// DIA format of solvers/hierarchy.py stops at 48), so no device copy of
-// them is made.  Sums accumulate in f32 for f32 and bf16 tables (the
-// Pallas kernel accumulated in the table dtype) and in f64 for f64, and
-// are stored in the table dtype.
+// Replaces parelag_tpu/ops/pallas_kernels.py::dia_spmv_pallas (:215),
+// ::dia_jacobi_sweep_pallas (:266), ::dia_spmv_multirhs_pallas (:328)
+// and ::dia_jacobi_sweep_multirhs_pallas (:400).  The table is row
+// aligned: data[d * ld + i] multiplies x[i + offs[d]], ld >= n.  On the
+// TPU the kernels kept a padded x in VMEM and took static slices of a
+// 1024-aligned superblock; here the kernels stage the x rows a tile of
+// rows touches in shared memory (the windows of a host plan) with
+// 16-byte copies, zero outside [0, m), so their inner loops have no
+// bounds test.  Sums accumulate in f32 for f32 and bf16 tables (the
+// Pallas kernels accumulated in the table dtype) and in f64 for f64, in
+// the offset order of the table, and are stored in the table dtype.  An
+// entry whose x row falls outside [0, m) is multiplied by 0 (as the
+// Pallas kernels' zero padding did), so it must be finite: to_dia
+// stores 0 there.
 
 #include "common.cuh"
 
 #define DIA_MAX_OFFS 64
 
-struct DiaOffs {
-    int v[DIA_MAX_OFFS];
+// 16 bytes global -> shared, bypassing L1; src_bytes < 16 zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(src_bytes));
+}
+
+// ---------------------------------------------------------------------
+// One right-hand side (dia_spmv_pallas, dia_jacobi_sweep_pallas)
+//
+// Bound on Hopper: device-memory bytes.  A matvec reads the nd x n table
+// once (nd = 27 on the H1 grids) plus x and y; two flops per table entry
+// sit far below the compute roofline.  On the 97^3 flagship grid the
+// bf16 table is 49.3 MB of the 53 MB a matvec must move: 15.8 us at
+// 3.35 TB/s.  The one-thread-a-row kernel these replace loaded one table
+// entry per offset from global memory behind a bounds branch: a few
+// 2-byte loads in flight a thread, 55 % of that in bf16.
+//
+// Design (the host plan, hopper_kernels.dia_row_plan, chooses each part
+// from shapes alone and is passed by value):
+//  * A block of T = 256 threads owns a tile of R = RT T rows, thread t
+//    the rows b + t + r T (r < RT; RT = 2 for f32 and bf16, 1 for f64,
+//    halved while the grid would have under 132 tiles).
+//  * x windows.  The plan merges the sorted offsets into windows
+//    (stage_windows: neighbours join while their gap is below R; the 27
+//    offsets of a 27-point grid make one window per z-plane); the block
+//    copies window k, the x rows [b + lo_k, b + lo_k + len_k) (lo_k
+//    rounded down to a multiple of V = 16 bytes of items), into shared
+//    memory with 16-byte cp.async, zero outside [0, m), so x[i +
+//    offs[d]] is staged element i - b + xo[d] and the sums have no
+//    bounds test.  Each x row crosses from L2 about (R + hi - lo) / R
+//    times a window instead of once an offset.  Where the windows do
+//    not fit kRowSmemBytes, x is read from device memory, 0 outside
+//    [0, m) by a predicated load.
+//  * Table, bf16 (and every dtype on a grid under 132 tiles): the block
+//    also copies its nd table rows, each tstride = R + V elements from
+//    the 16-byte boundary at or below data[d ld + b] (rows of ld = n
+//    elements are not 16-byte aligned, and the table is not padded),
+//    zero-filled past the table's end: every table byte crosses device
+//    memory once, in 16-byte pieces, the whole slab in flight before one
+//    wait, and a thread then reads the entry of row i at staged element
+//    d tstride + (d ld mod V) + i - b: two scalar shared loads and an
+//    FMA a row-offset.  Table, f32 and f64 on larger grids: each thread
+//    loads its entries from device memory (coalesced across the warp,
+//    4 or 8 bytes a lane) in batches of kRowBatch offsets issued a batch
+//    ahead of their products, the first before the staging's wait; x
+//    still from the windows.
+//  * The sweep also copies the tile's b and dw rows and takes x[i] from
+//    the window that holds offset 0 (plan center).
+//  * Sums in offset order, in f32 (f64 for f64), as the plain version.
+//
+// Measured (kernel_profile --dia, --dia-variants, --ablate; PERF.md):
+// with the sums left out, the bf16 copies alone run near the card's
+// streaming rate; the sums cost two shared-memory wavefronts a
+// row-offset, which is what keeps the bf16 pair above its bound.  A
+// staged f32 table loses to its direct loads on the 49^3 grid and the
+// darcy table (and ties on the 97^3 grid), hence the split by dtype;
+// two rows a thread gain on all three.  Threads that owned V rows and
+// shifted 16-byte table vectors in registers, with batches of loads
+// issued ahead and neighbour chunks by warp shuffle, ran slower than the
+// one-thread-a-row kernel on every grid (shifting and unpacking cost
+// ~80 instructions an offset and 100-127 registers a thread), and so did
+// a persistent grid that double-buffered tiles: both were removed.
+//
+// Pointers: the table, x, b and dw may start anywhere on their element
+// size (a row of a Krylov basis, say).  Each is staged from the 16-byte
+// boundary at or below its first element, `lead` elements before it, and
+// read at that shift: the plan's windows hold V - 1 rows more than the
+// tile needs, b and dw R + V rows; an element before the tensor's start
+// is never read (the chunk that holds the start is copied element by
+// element, zeros before it).  The dynamic shared memory stays within the
+// default 48 KB (kRowSmemBytes; the plan cuts T to fit), so no attribute
+// is set.
+
+// the plan, by value (ctypes mirror: hopper_kernels._DiaRow)
+struct DiaRow {
+    int threads;              // T: threads a block
+    int rows;                 // RT: rows a thread, T apart (a tile: RT T)
+    int tstride;              // staged table row: RT T + V elements
+    int tstaged;              // 1: the table rows are staged
+    int staged;               // 1: the x windows are staged
+    int center;               // x[i] at staged x element i - b + center
+                              // + lead(x) (staged, offset 0 in a
+                              // window), else -1
+    int nwin;                 // windows
+    int xlen;                 // staged x elements of all windows
+    int off[DIA_MAX_OFFS];    // the offsets
+    int xo[DIA_MAX_OFFS];     // x[b + t + off[d]] at staged x element
+                              // t + xo[d] + lead(x) (staged)
+    int lo[DIA_MAX_OFFS];     // window k: x rows from b + lo[k] on ...
+    int len[DIA_MAX_OFFS];    // ... len[k] of them (multiples of V) ...
+    int base[DIA_MAX_OFFS];   // ... from staged x element base[k] on
 };
 
+static const int kRowMaxThreads = 256;
+static const int kRowSmemBytes = 49152;
+// measurement hook (kernel_profile --dia --ablate), as the multi-RHS
+// kernels': built with -DDIA_STAGE_ABLATE=1 the kernels skip the sums,
+// with =2 the copies into shared memory; their results are then wrong
+
+// offsets a batch: their coefficients are loaded before their products
+static const int kRowBatch = 8;
+
+// the elements of T between p and the 16-byte boundary at or below it
 template <typename T>
-__global__ void dia_spmv_kernel(const T* __restrict__ data,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                const __grid_constant__ DiaOffs offs, int nd,
-                                long long ld, int n, int m) {
-    using A = typename AccOf<T>::type;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    A acc = A(0);
-    for (int d = 0; d < nd; ++d) {
-        long long j = i + offs.v[d];
-        if (j >= 0 && j < m) acc += widen(data[d * ld + i]) * widen(x[j]);
-    }
-    narrow(y + i, acc);
+__device__ __forceinline__ int lead(const T* p) {
+    return (int)((reinterpret_cast<unsigned long long>(p) & 15ull)
+                 / sizeof(T));
 }
 
-// x'[i] = x[i] + dw[i] * (b[i] - sum_d data[d, i] x[i + offs[d]])
-// (dw carries omega * dinv); square operator, separate output.
+// The chunk of stage_chunk that holds the tensor's start lo: element by
+// element, zeros before lo and from hi on (kept out of line: the
+// staging loops meet it at most once a tensor)
 template <typename T>
-__global__ void dia_jacobi_kernel(const T* __restrict__ data,
-                                  const T* __restrict__ x,
-                                  const T* __restrict__ b,
-                                  const T* __restrict__ dw,
-                                  T* __restrict__ xout,
-                                  const __grid_constant__ DiaOffs offs,
-                                  int nd, long long ld, int n) {
-    using A = typename AccOf<T>::type;
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    A acc = A(0);
-    for (int d = 0; d < nd; ++d) {
-        long long j = i + offs.v[d];
-        if (j >= 0 && j < n) acc += widen(data[d * ld + i]) * widen(x[j]);
+__device__ __noinline__ void stage_head(T* dst, const T* __restrict__ base,
+                                        long long g, long long lo,
+                                        long long hi) {
+    constexpr int V = 16 / (int)sizeof(T);
+    for (int e = 0; e < V; ++e) {
+        const long long j = g + e;
+        if (j >= lo && j < hi) dst[e] = base[j];
+        else narrow(dst + e, typename AccOf<T>::type(0));
     }
-    narrow(xout + i, widen(x[i]) + widen(dw[i]) * (widen(b[i]) - acc));
 }
 
-static const int kThreads = 256;
-
-static bool pack_offs(DiaOffs* o, const int* offs, int nd) {
-    if (nd < 1 || nd > DIA_MAX_OFFS) return false;
-    for (int d = 0; d < nd; ++d) o->v[d] = offs[d];
-    return true;
+// The V elements [g, g + V) of base (16-byte aligned; g a multiple of V)
+// into dst, those outside the tensor's [lo, hi) as zeros: one 16-byte
+// copy (zero-filled past hi), or stage_head for the chunk that holds the
+// tensor's start, so nothing before it is read
+template <typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* __restrict__ base,
+                                            long long g, long long lo,
+                                            long long hi) {
+    constexpr int V = 16 / (int)sizeof(T);
+    if (g >= lo && g + V <= hi) {
+        cp_async16(dst, base + g, 16);
+    } else if (g >= lo || g + V <= lo) {
+        // past the end, in part or whole, or wholly before the start
+        const long long left = g >= lo && g < hi ? hi - g : 0;
+        cp_async16(dst, left ? base + g : base, (int)left * (int)sizeof(T));
+    } else {
+        stage_head<T>(dst, base, g, lo, hi);
+    }
 }
 
-extern "C" int dia_spmv_launch(int dtype, const void* data, const void* x,
-                               void* y, const int* offs, int nd, long long ld,
-                               int n, int m, void* stream) {
-    DiaOffs o;
-    if (!pack_offs(&o, offs, nd) || n < 0 || m < 0)
+// Issue the copies of the tile at row b0 (see the note above): its nd
+// table rows into ts, chunk (d, k) by thread (d tstride / V + k) mod T,
+// (STAGED) its x windows into xs and (SWEEP) its b and dw into bs, each
+// from the 16-byte boundary at or below its tensor's own position
+template <typename T, bool STAGED, bool TSTAGED, bool SWEEP>
+__device__ __forceinline__ void stage_row_tile(T* ts, T* xs, T* bs,
+                                               const T* __restrict__ data,
+                                               const T* __restrict__ x,
+                                               const T* __restrict__ b,
+                                               const T* __restrict__ dw,
+                                               const DiaRow& p, int nd,
+                                               long long ld, long long b0,
+                                               int m) {
+    constexpr int V = 16 / (int)sizeof(T);
+    if constexpr (SWEEP) {
+        // the tile's b and dw rows (m = n), R + V each, zero past n
+        const int R = blockDim.x * p.rows;
+        const int ba = lead(b), wa = lead(dw);
+        for (int e = threadIdx.x * V; e < R + V; e += blockDim.x * V) {
+            stage_chunk<T>(bs + e, b - ba, b0 + e, ba, ba + m);
+            stage_chunk<T>(bs + R + V + e, dw - wa, b0 + e, wa, wa + m);
+        }
+    }
+    if constexpr (TSTAGED) {
+        const int ta = lead(data);
+        const long long tend = ta + (long long)nd * ld;  // the table's end
+        const int cpr = p.tstride / V;
+        const int dd = blockDim.x / cpr, dk = blockDim.x % cpr;
+        int d = threadIdx.x / cpr, k = threadIdx.x % cpr;
+        while (d < nd) {
+            const long long g =
+                ((ta + (long long)d * ld + b0) & ~(long long)(V - 1))
+                + k * V;
+            stage_chunk<T>(ts + d * p.tstride + k * V, data - ta, g, ta,
+                           tend);
+            d += dd;
+            k += dk;
+            if (k >= cpr) { k -= cpr; ++d; }
+        }
+    }
+    if constexpr (STAGED) {
+        const int xa = lead(x);
+        for (int w = 0; w < p.nwin; ++w) {
+            const long long g0 = b0 + p.lo[w];
+            T* dst = xs + p.base[w];
+            for (int e = threadIdx.x * V; e < p.len[w]; e += blockDim.x * V)
+                stage_chunk<T>(dst + e, x - xa, g0 + e, xa, xa + m);
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// x[i_r + off[d]] of the thread's row r: from the staged windows (STAGED;
+// xd at staged x element t + xo[d]) or from device memory, 0 outside
+// [0, m)
+template <typename T, bool STAGED>
+__device__ __forceinline__ typename AccOf<T>::type xval(
+        const T* xd, const T* __restrict__ x, long long j, int m) {
+    using A = typename AccOf<T>::type;
+    if constexpr (STAGED) return widen(*xd);
+    else return j >= 0 && j < m ? widen(__ldg(x + j)) : A(0);
+}
+
+// The entries of offsets [d0, d0 + kRowBatch) below nd for the thread's
+// rows i0 + r T, from device memory (coalesced across the warp); a row
+// past n reads row n - 1 instead (it is not stored)
+template <typename T, int RT>
+__device__ __forceinline__ void load_batch(
+        typename AccOf<T>::type (&c)[kRowBatch][RT],
+        const T* __restrict__ data, int d0, int nd, long long ld,
+        long long i0, int n) {
+    long long row[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const long long i = i0 + (long long)r * blockDim.x;
+        row[r] = i < n ? i : n - 1;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowBatch; ++u) {
+        if (d0 + u >= nd) break;
+        const T* td = data + (long long)(d0 + u) * ld;
+#pragma unroll
+        for (int r = 0; r < RT; ++r) c[u][r] = widen(__ldg(td + row[r]));
+    }
+}
+
+template <typename T, int RT>
+__device__ __forceinline__ void copy_batch(
+        typename AccOf<T>::type (&c)[kRowBatch][RT],
+        const typename AccOf<T>::type (&from)[kRowBatch][RT]) {
+#pragma unroll
+    for (int u = 0; u < kRowBatch; ++u)
+#pragma unroll
+        for (int r = 0; r < RT; ++r) c[u][r] = from[u][r];
+}
+
+// acc[r] += data[d, i_r] x[i_r + off[d]] for all d, in order, for the
+// rows i_r = b0 + t + r T of the thread (x[i_r + off[d]] at xs[t + r T +
+// xo[d]]: xs already moved by x's lead).  TSTAGED: the entry of row i_r
+// at staged element d tstride + ((lead + d ld) mod V) + t + r T, two
+// shared loads and an FMA an offset.  Else the entries from device memory, coalesced
+// across the warp, in batches of kRowBatch offsets whose loads are
+// issued one batch ahead of their products (the first batch, `first`,
+// before the staging's wait).
+template <typename T, int RT, bool STAGED, bool TSTAGED>
+__device__ __forceinline__ void sum_offsets(
+        typename AccOf<T>::type (&acc)[RT], const T* ts, const T* xs,
+        const T* __restrict__ data, const T* __restrict__ x,
+        const DiaRow& p, int nd, long long ld, long long b0, int n, int m,
+        const typename AccOf<T>::type (&first)[kRowBatch][RT]) {
+    constexpr int V = 16 / (int)sizeof(T);
+    using A = typename AccOf<T>::type;
+    const int t = threadIdx.x, nt = blockDim.x;
+    const long long i0 = b0 + t;
+    if constexpr (TSTAGED) {
+        const int ldv = (int)(ld & (V - 1));
+        int sh = lead(data);                     // (lead + d ld) mod V
+        const T* tr = ts + t;
+        for (int d = 0; d < nd; ++d) {
+            const T* td = tr + sh;
+            const T* xd = xs + t + p.xo[d];
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+                acc[r] += widen(td[r * nt])
+                          * xval<T, STAGED>(xd + r * nt, x,
+                                            i0 + r * nt + p.off[d], m);
+            tr += p.tstride;
+            sh = (sh + ldv) & (V - 1);
+        }
+        return;
+    }
+    // each batch's loads go out one batch ahead of its products
+    A c[kRowBatch][RT], next[kRowBatch][RT];
+    copy_batch<T, RT>(c, first);
+    for (int d0 = 0; d0 < nd; d0 += kRowBatch) {
+        load_batch<T, RT>(next, data, d0 + kRowBatch, nd, ld, i0, n);
+#pragma unroll
+        for (int u = 0; u < kRowBatch; ++u) {
+            const int d = d0 + u;
+            if (d >= nd) break;
+            const T* xd = xs + t + p.xo[d];
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+                acc[r] += c[u][r] * xval<T, STAGED>(xd + r * nt, x,
+                                                    i0 + r * nt + p.off[d],
+                                                    m);
+        }
+        copy_batch<T, RT>(c, next);
+    }
+}
+
+// y[i] = sum_d data[d, i] x[i + off[d]] or, SWEEP (m = n), y[i] = x[i] +
+// dw[i] (b[i] - that sum), for the RT rows b + t + r T of each thread
+// (r < RT; a tile of R = RT T rows)
+template <typename T, int RT, bool STAGED, bool TSTAGED, bool SWEEP>
+__device__ __forceinline__ void dia_rows(
+        T* sm, const T* __restrict__ data, const T* __restrict__ x,
+        const T* __restrict__ b, const T* __restrict__ dw,
+        T* __restrict__ y, const DiaRow& p, int nd, long long ld, int n,
+        int m) {
+    constexpr int V = 16 / (int)sizeof(T);
+    using A = typename AccOf<T>::type;
+    const int t = threadIdx.x, nt = blockDim.x;
+    const long long b0 = (long long)blockIdx.x * nt * RT;
+    // shared memory: [table rows][x windows][b][dw], each present or not
+    T* ts = sm;
+    T* xs = TSTAGED ? sm + nd * p.tstride : sm;
+    T* bs = STAGED ? xs + p.xlen : xs;
+#if DIA_STAGE_ABLATE != 2
+    stage_row_tile<T, STAGED, TSTAGED, SWEEP>(ts, xs, bs, data, x, b, dw, p,
+                                              nd, ld, b0, m);
+#endif
+    A xi[RT];
+    if constexpr (SWEEP) {
+        // x[i] from device memory unless its window is staged
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+            const long long i = b0 + t + (long long)r * nt;
+            xi[r] = !(STAGED && p.center >= 0) && i < n ? widen(__ldg(x + i))
+                                                        : A(0);
+        }
+    }
+    // the table read from device memory: the first batch's loads go out
+    // before the wait
+    A first[kRowBatch][RT];
+    if constexpr (!TSTAGED)
+        load_batch<T, RT>(first, data, 0, nd, ld, b0 + t, n);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (b0 + t >= n) return;
+    A acc[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r] = A(0);
+    // staged x, b and dw sit at their leads past the 16-byte boundary
+    const T* xsa = STAGED ? xs + lead(x) : xs;
+#if DIA_STAGE_ABLATE != 1
+    sum_offsets<T, RT, STAGED, TSTAGED>(acc, ts, xsa, data, x, p, nd, ld, b0,
+                                         n, m, first);
+#endif
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        const long long i = b0 + t + (long long)r * nt;
+        if (i >= n) break;
+        if constexpr (SWEEP) {
+            const int e = t + r * nt;
+            if (STAGED && p.center >= 0) xi[r] = widen(xsa[e + p.center]);
+            acc[r] = xi[r] + widen(bs[RT * nt + V + lead(dw) + e])
+                             * (widen(bs[lead(b) + e]) - acc[r]);
+        }
+        narrow(y + i, acc[r]);
+    }
+}
+
+template <typename T, int RT, bool STAGED, bool TSTAGED>
+__global__ void __launch_bounds__(kRowMaxThreads)
+dia_spmv_row_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                    T* __restrict__ y, const __grid_constant__ DiaRow p,
+                    int nd, long long ld, int n, int m) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    dia_rows<T, RT, STAGED, TSTAGED, false>(reinterpret_cast<T*>(smem), data,
+                                            x, nullptr, nullptr, y, p, nd, ld,
+                                            n, m);
+}
+
+template <typename T, int RT, bool STAGED, bool TSTAGED>
+__global__ void __launch_bounds__(kRowMaxThreads)
+dia_jacobi_row_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                      const T* __restrict__ b, const T* __restrict__ dw,
+                      T* __restrict__ xout,
+                      const __grid_constant__ DiaRow p, int nd,
+                      long long ld, int n) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    dia_rows<T, RT, STAGED, TSTAGED, true>(reinterpret_cast<T*>(smem), data,
+                                           x, b, dw, xout, p, nd, ld, n, n);
+}
+
+// a pointer on the element size of T (any tensor's is)
+template <typename T>
+static bool on_item(const void* a) {
+    return reinterpret_cast<unsigned long long>(a) % sizeof(T) == 0;
+}
+
+template <typename T, int RT, bool STAGED, bool TSTAGED, bool SWEEP>
+static void row_kernel(unsigned grid, const DiaRow& p, size_t smem,
+                       cudaStream_t st, const void* data, const void* x,
+                       const void* b, const void* dw, void* y, int nd,
+                       long long ld, int n, int m) {
+    const T *dt = (const T*)data, *xt = (const T*)x;
+    if constexpr (SWEEP)
+        dia_jacobi_row_kernel<T, RT, STAGED, TSTAGED>
+            <<<grid, p.threads, smem, st>>>(dt, xt, (const T*)b,
+                                            (const T*)dw, (T*)y, p, nd, ld,
+                                            n);
+    else
+        dia_spmv_row_kernel<T, RT, STAGED, TSTAGED>
+            <<<grid, p.threads, smem, st>>>(dt, xt, (T*)y, p, nd, ld, n, m);
+}
+
+// the kernel for the plan's RT, x staging and table staging
+template <typename T, bool SWEEP>
+static void row_pick(unsigned grid, const DiaRow& p, size_t smem,
+                     cudaStream_t st, const void* data, const void* x,
+                     const void* b, const void* dw, void* y, int nd,
+                     long long ld, int n, int m) {
+    const int k = (p.rows == 2) * 4 + p.staged * 2 + p.tstaged;
+    switch (k) {
+#define DIA_ROW_CASE(K, RT, XS, TS)                                          \
+        case K:                                                              \
+            row_kernel<T, RT, XS, TS, SWEEP>(grid, p, smem, st, data, x, b, \
+                                             dw, y, nd, ld, n, m);          \
+            break;
+        DIA_ROW_CASE(0, 1, false, false)
+        DIA_ROW_CASE(1, 1, false, true)
+        DIA_ROW_CASE(2, 1, true, false)
+        DIA_ROW_CASE(3, 1, true, true)
+        DIA_ROW_CASE(4, 2, false, false)
+        DIA_ROW_CASE(5, 2, false, true)
+        DIA_ROW_CASE(6, 2, true, false)
+        DIA_ROW_CASE(7, 2, true, true)
+#undef DIA_ROW_CASE
+    }
+}
+
+// Checks the plan against the shapes and launches; returns 0 or a CUDA
+// error (cudaErrorInvalidValue for what the kernels do not take)
+template <typename T, bool SWEEP>
+static int row_launch(const void* data, const void* x, const void* b,
+                      const void* dw, void* y, const DiaRow& p, int nd,
+                      long long ld, int n, int m, cudaStream_t st) {
+    constexpr int V = 16 / (int)sizeof(T);
+    if (nd < 1 || nd > DIA_MAX_OFFS || n < 1 || m < 0 || ld < n
+        || p.threads < 32 || p.threads > kRowMaxThreads || p.threads % 32
+        || (p.rows != 1 && p.rows != 2) || (p.tstaged != 0 && p.tstaged != 1)
+        || (p.staged != 0 && p.staged != 1)
+        || p.tstride != p.threads * p.rows + V || !on_item<T>(data)
+        || !on_item<T>(x)
+        || (SWEEP && (m != n || !on_item<T>(b) || !on_item<T>(dw))))
         return (int)cudaErrorInvalidValue;
+    const int tile = p.threads * p.rows;
+    long long elems = p.tstaged ? (long long)nd * p.tstride : 0;
+    if (SWEEP) elems += 2LL * (tile + V);              // b and dw
+    if (p.staged) {
+        if (m < 1 || p.nwin < 1 || p.nwin > DIA_MAX_OFFS)
+            return (int)cudaErrorInvalidValue;
+        int at = 0;
+        for (int k = 0; k < p.nwin; ++k) {
+            if (p.lo[k] % V || p.len[k] < V || p.len[k] % V
+                || p.base[k] != at)
+                return (int)cudaErrorInvalidValue;
+            at += p.len[k];
+        }
+        // the last thread's x stays staged at any lead below V
+        if (at != p.xlen
+            || (p.center >= 0 && p.center + tile + V - 1 > p.xlen))
+            return (int)cudaErrorInvalidValue;
+        for (int d = 0; d < nd; ++d)
+            if (p.xo[d] < 0 || p.xo[d] + tile + V - 1 > p.xlen)
+                return (int)cudaErrorInvalidValue;
+        elems += p.xlen;
+    }
+    const size_t smem = elems * sizeof(T);
+    if (smem > (size_t)kRowSmemBytes) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((n + tile - 1) / tile);
+    row_pick<T, SWEEP>(grid, p, smem, st, data, x, b, dw, y, nd, ld, n, m);
+    return (int)cudaGetLastError();
+}
+
+template <bool SWEEP>
+static int row_dispatch(int dtype, const void* data, const void* x,
+                        const void* b, const void* dw, void* y,
+                        const DiaRow* plan, int nd, long long ld, int n,
+                        int m, void* stream) {
+    if (n < 0 || m < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
-    dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
-    cudaStream_t s = (cudaStream_t)stream;
+    cudaStream_t st = (cudaStream_t)stream;
     switch (dtype) {
         case DT_F32:
-            dia_spmv_kernel<float><<<grid, kThreads, 0, s>>>(
-                (const float*)data, (const float*)x, (float*)y, o, nd, ld, n,
-                m);
-            break;
+            return row_launch<float, SWEEP>(data, x, b, dw, y, *plan, nd, ld,
+                                            n, m, st);
         case DT_BF16:
-            dia_spmv_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-                (const __nv_bfloat16*)data, (const __nv_bfloat16*)x,
-                (__nv_bfloat16*)y, o, nd, ld, n, m);
-            break;
+            return row_launch<__nv_bfloat16, SWEEP>(data, x, b, dw, y, *plan,
+                                                    nd, ld, n, m, st);
         case DT_F64:
-            dia_spmv_kernel<double><<<grid, kThreads, 0, s>>>(
-                (const double*)data, (const double*)x, (double*)y, o, nd, ld,
-                n, m);
-            break;
+            return row_launch<double, SWEEP>(data, x, b, dw, y, *plan, nd,
+                                             ld, n, m, st);
         default:
             return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
+}
+
+extern "C" int dia_spmv_launch(int dtype, const void* data, const void* x,
+                               void* y, const DiaRow* plan, int nd,
+                               long long ld, int n, int m, void* stream) {
+    return row_dispatch<false>(dtype, data, x, nullptr, nullptr, y, plan, nd,
+                               ld, n, m, stream);
 }
 
 extern "C" int dia_jacobi_sweep_launch(int dtype, const void* data,
                                        const void* x, const void* b,
                                        const void* dw, void* xout,
-                                       const int* offs, int nd, long long ld,
-                                       int n, void* stream) {
-    DiaOffs o;
-    if (!pack_offs(&o, offs, nd) || n < 0) return (int)cudaErrorInvalidValue;
-    if (n == 0) return 0;
-    dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (dtype) {
-        case DT_F32:
-            dia_jacobi_kernel<float><<<grid, kThreads, 0, s>>>(
-                (const float*)data, (const float*)x, (const float*)b,
-                (const float*)dw, (float*)xout, o, nd, ld, n);
-            break;
-        case DT_BF16:
-            dia_jacobi_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-                (const __nv_bfloat16*)data, (const __nv_bfloat16*)x,
-                (const __nv_bfloat16*)b, (const __nv_bfloat16*)dw,
-                (__nv_bfloat16*)xout, o, nd, ld, n);
-            break;
-        case DT_F64:
-            dia_jacobi_kernel<double><<<grid, kThreads, 0, s>>>(
-                (const double*)data, (const double*)x, (const double*)b,
-                (const double*)dw, (double*)xout, o, nd, ld, n);
-            break;
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+                                       const DiaRow* plan, int nd,
+                                       long long ld, int n, void* stream) {
+    return row_dispatch<true>(dtype, data, x, b, dw, xout, plan, nd, ld, n,
+                              n, stream);
 }
 
 // ---------------------------------------------------------------------
@@ -295,14 +685,6 @@ template <> struct Cols<__nv_bfloat16, 8> {
         *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
     }
 };
-
-// 16 bytes global -> shared, bypassing L1; src_bytes < 16 zero-fills
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(src_bytes));
-}
 
 // One tile of the work list: rows [b, b + valid) of the output, columns
 // [q0, q0 + cw); rot: window k sits in slot (k + rot) % K; fresh: every

@@ -13,6 +13,8 @@
     python -m parelag_tpu_torch.kernel_profile --ho 16
     python -m parelag_tpu_torch.kernel_profile --formats
     python -m parelag_tpu_torch.kernel_profile --dist 8 [--dist-ny 4,32]
+    python -m parelag_tpu_torch.kernel_profile --dia [--dia-variants]
+        [--ablate compute|fill] [--dia-darcy 64]
 
 Builds the H1 flagship hierarchy (flagship.build_h1_structured +
 build_solver) and the Maxwell hierarchy (maxwell_lane), recording for
@@ -58,10 +60,11 @@ torch.profiler (CPU and CUDA activities):
     slots a lane (hopper_kernels.ELL_SLOTS) set to each S, one row per
     S (the lanes a row follow from it);
   * --ablate compute|fill: builds the kernels with -DDIA_STAGE_ABLATE
-    (csrc/dia.cu) so the staged multi-RHS DIA kernels skip their sums
-    (compute) or their copies into shared memory (fill), and times only
-    their level-0 variants: the split of their time between the two
-    phases.  Those builds compute wrong results.
+    (csrc/dia.cu) so the staged DIA kernels, multi-RHS and 1-RHS, skip
+    their sums (compute) or their copies into shared memory (fill), and
+    times only the multi-RHS pair's level-0 variants (with --dia: the
+    --dia rows): the split of their time between the two phases.  Those
+    builds compute wrong results.
 
 --darcy-block NREF times, alone, the kernel of every operator of the
 blocked Darcy GMRES's f64 hierarchy (darcy_lane.lane_darcy_block) with
@@ -112,6 +115,21 @@ torch kernel), and kernel rows, with bound_us and the library call, for
 ell_spmv on every operator the step applies
 (dist_bench.level_operators).
 
+--dia times only the 1-RHS DIA kernels, dia_spmv and dia_jacobi_sweep:
+on every DIA level of the flagship's f32 hierarchy and its bf16 cast at
+--nx (96: A0, A1, A2) and on the DIA part of the darcy_hyb outer
+operator at --dia-darcy (64; 0: none), x, b and dw from a fixed seed,
+each row with device us per launch, library_device_us (the SpMV's CSR
+product), bound_us (the nonzeros, the offsets and each vector once) and
+the launch plan (hopper_kernels.dia_row_plan; "one thread a row" in an
+older checkout, which it also runs against: PYTHONPATH=old python
+kernel_profile.py --dia, for the parent and the change in one call).
+--dia-variants adds rows with each plan choice forced (DIA_VARIANTS:
+the table staged or read from device memory, one or two rows a thread, x
+from device memory); with --ablate compute|fill (above) the rows time
+the pair without its sums or its copies into shared memory: the split
+of their time (wrong results).
+
 --darcy NX profiles the hybridized Darcy multiplier solve at NX^3 instead
 (darcy_lane.build_darcy_hyb, HybridHdivL2._device_setup on the card: a
 memory row): a solve row for the inner f32 PCG (rtol 1e-6, the first
@@ -159,8 +177,8 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 PEAK_FLOPS_F64 = 34e12      # FP64 outside the tensor cores (data sheet)
 HOST_CALLS = 200            # enqueues timed for host_us_per_call
 MIXED_NOTE = "torch's CSR product takes one dtype for the matrix and x"
-# --ablate: the phase the staged multi-RHS DIA kernels leave out, as
-# csrc/dia.cu's DIA_STAGE_ABLATE
+# --ablate: the phase the staged DIA kernels leave out, as csrc/dia.cu's
+# DIA_STAGE_ABLATE
 ABLATE = {"compute": 1, "fill": 2}
 #: the hand kernel behind the product of each format that has one
 KERNEL_OF = {BcsrMatrix: "bcsr_spmv", EllMatrix: "ell_spmv"}
@@ -171,6 +189,10 @@ SWEEP_NOTE = ("no single PyTorch call computes a fused Jacobi sweep "
 KERNEL_NAMES = {
     "dia_spmv_staged_kernel": "dia_spmv_multirhs",
     "dia_jacobi_staged_kernel": "dia_jacobi_sweep_multirhs",
+    "dia_spmv_row_kernel": "dia_spmv",
+    "dia_jacobi_row_kernel": "dia_jacobi_sweep",
+    # the one-thread-a-row kernels of older checkouts (--dia beside one:
+    # PYTHONPATH=old python kernel_profile.py --dia)
     "dia_spmv_kernel": "dia_spmv",
     "dia_jacobi_kernel": "dia_jacobi_sweep",
     "bcsr_row_spmm_kernel": "bcsr_spmv_multirhs",
@@ -622,6 +644,89 @@ def _darcy(nx, dev, emit):
                  note="a composite of the rows above and torch ops"))
 
 
+# --dia-variants: the 1-RHS DIA plan's choices forced one at a time
+DIA_VARIANTS = {
+    "table staged": {"ROW_TABLE_STAGED": True},
+    "table direct": {"ROW_TABLE_STAGED": False, "ROW_MIN_TILES": 0},
+    "RT=1": {"ROW_ROWS": 1},
+    "RT=2": {"ROW_ROWS": 2, "ROW_MIN_TILES": 0},
+    "x via L1/L2": {"staged": False},
+}
+
+
+def _dia_variant(name):
+    """Patch hopper_kernels for one --dia-variants entry; returns the undo
+    function.  The plan is rebuilt for each (its cache cleared)."""
+    saved = {}
+    plan = hk.dia_row_plan
+    for key, value in DIA_VARIANTS[name].items():
+        if key == "staged":
+            saved["dia_row_plan"] = plan
+            hk.dia_row_plan = (lambda *a: plan(*a)._replace(staged=False,
+                                                            center=-1))
+            continue
+        saved[key] = getattr(hk, key)
+        setattr(hk, key, dict.fromkeys(saved[key], value)
+                if isinstance(saved[key], dict) else value)
+    plan.cache_clear()
+
+    def undo():
+        for key, value in saved.items():
+            setattr(hk, key, value)
+        plan.cache_clear()
+    return undo
+
+
+def _dia(args, dev, emit):
+    """The --dia rows (see the module docstring)."""
+    from parelag_tpu_torch import darcy_lane
+    hk.load()
+    A_levels, P_levels, _ = flagship.build_h1_structured(args.nx, device=dev)
+    H, Hb = flagship.build_solver(A_levels, P_levels, dev)
+    cases = [(f"A{l} {tag}", Hx.levels[l].A)
+             for l in range(len(H.levels))
+             for Hx, tag in ((H, "f32"), (Hb, "bf16"))
+             if isinstance(Hx.levels[l].A, DiaMatrix)]
+    if args.dia_darcy:
+        hyb, Hs, _ = darcy_lane.build_darcy_hyb(args.dia_darcy)
+        _, Hd, _, _, _, _ = hyb._device_setup(Hs, dev)
+        cases.append(("darcy Hd DIA part f32", Hd.dia))
+    new = hasattr(hk, "dia_row_plan")
+    variants = ["plan"] + (list(DIA_VARIANTS) if args.dia_variants and new
+                           else [])
+    rng = np.random.RandomState(5)
+    for label, M in cases:
+        n = M.shape[0]
+        x, b = (torch.as_tensor(rng.randn(n).astype(np.float32)).to(dev)
+                .to(M.dtype) for _ in range(2))
+        dw = torch.as_tensor(rng.rand(n).astype(np.float32)).to(dev).to(
+            M.dtype)
+        item, nnz = x.element_size(), _nnz(M)
+        for variant in variants:
+            undo = _dia_variant(variant) if variant != "plan" else None
+            try:
+                for kernel, fn, v, extra, flops in (
+                        ("dia_spmv", M, x, 0, 2 * nnz),
+                        ("dia_jacobi_sweep", lambda: hk.dia_jacobi_sweep(
+                            M.data, M.offs, x, b, dw), None, 2 * n * item,
+                         2 * nnz + 3 * n)):
+                    row = _timed_row(kernel, f"{label} n={n} nd="
+                                     f"{len(M.offs)} {variant}", fn, v)
+                    row.update(
+                        bound_us=_bound_us(_sparse_bytes(M, item) + extra,
+                                           flops),
+                        nnz=nnz, format_bytes=M.data.numel() * item,
+                        variant_of_plan=variant, ablate=args.ablate,
+                        plan=(hk.dia_row_plan(
+                            M.offs, n, n, M.dtype,
+                            kernel == "dia_jacobi_sweep").tag()
+                            if new else "one thread a row"))
+                    emit(row)
+            finally:
+                if undo:
+                    undo()
+
+
 def _darcy_block(nref, dev, emit):
     """The --darcy-block rows: the kernel of every operator a cycle of
     the blocked Darcy GMRES's f64 hierarchy (darcy_lane.lane_darcy_block)
@@ -915,9 +1020,17 @@ def main(argv=None):
     ap.add_argument("--formats", action="store_true",
                     help="print only the A format of every level of every "
                     "lane's hierarchy")
+    ap.add_argument("--dia", action="store_true",
+                    help="time only the 1-RHS DIA kernels on the flagship's "
+                    "DIA levels and the darcy DIA part")
+    ap.add_argument("--dia-darcy", type=int, default=64,
+                    help="the darcy_hyb grid of the --dia rows (0: none)")
+    ap.add_argument("--dia-variants", action="store_true",
+                    help="with --dia, also time each plan choice forced")
     ap.add_argument("--ablate", choices=sorted(ABLATE), default=None,
-                    help="time the level-0 multi-RHS DIA variants with "
-                    "one phase of the staged kernels left out")
+                    help="time the level-0 multi-RHS DIA variants (with "
+                    "--dia: the --dia rows) with one phase of the staged "
+                    "kernels left out")
     args = ap.parse_args(argv)
     emit = _emitter(args.out)
     try:
@@ -930,6 +1043,12 @@ def main(argv=None):
 
 def _run(args, emit):
     dev = pick_device()
+    if args.ablate:
+        # a build of its own: the flags are part of the library's hash
+        build.NVCC_FLAGS += (f"-DDIA_STAGE_ABLATE={ABLATE[args.ablate]}",)
+    if args.dia:
+        _dia(args, dev, emit)
+        return
     if args.darcy:
         _darcy(args.darcy, dev, emit)
         return
@@ -952,9 +1071,6 @@ def _run(args, emit):
         _dist(args.dist, [int(v) for v in args.dist_ny.split(",")], dev,
               emit)
         return
-    if args.ablate:
-        # a build of its own: the flags are part of the library's hash
-        build.NVCC_FLAGS += (f"-DDIA_STAGE_ABLATE={ABLATE[args.ablate]}",)
 
     def build_h1():
         A_levels, P_levels, b = flagship.build_h1_structured(args.nx,

@@ -104,8 +104,9 @@ def spe10_darcy(field: PermeabilityField = None, cells=(16, 16, 8),
     (MultigridTestSPE10 flow). Returns dict with solutions, errors and
     solver info. device: where the "device" and "auto" multiplier
     solvers run (HybridHdivL2.solve; None: the card); device_solves
-    holds each level's HybridHdivL2.last_device and device_hierarchies
-    its last_hierarchy (None where no device solve ran)."""
+    holds each level's HybridHdivL2.last_device, device_hierarchies
+    its last_hierarchy and device_operators its last_operator (None where
+    no device solve ran)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
     from parelag_tpu_torch.topology.topology import AgglomeratedTopology
@@ -197,6 +198,8 @@ def spe10_darcy(field: PermeabilityField = None, cells=(16, 16, 8),
                 getattr(hyb, "last_device", None))
             out.setdefault("device_hierarchies", []).append(
                 getattr(hyb, "last_hierarchy", None))
+            out.setdefault("device_operators", []).append(
+                getattr(hyb, "last_operator", None))
             out["solve_s"].append(out["solve_s_by"][mult_solvers[0]][-1])
         else:
             B = (Wl[k] @ Dl[k]).tocsr()

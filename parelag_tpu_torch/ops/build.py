@@ -120,12 +120,11 @@ def load():
     signatures of its launchers declared."""
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    ip = ctypes.POINTER(ctypes.c_int)
     signatures = {
-        "dia_spmv_launch": [i32, vp, vp, vp, ip, i32, i64, i32, i32, vp],
-        "dia_jacobi_sweep_launch": [i32, vp, vp, vp, vp, vp, ip, i32, i64,
+        # the DIA launchers take their plan struct by pointer
+        "dia_spmv_launch": [i32, vp, vp, vp, vp, i32, i64, i32, i32, vp],
+        "dia_jacobi_sweep_launch": [i32, vp, vp, vp, vp, vp, vp, i32, i64,
                                     i32, vp],
-        # the multi-RHS DIA launchers take the plan struct by pointer
         "dia_spmv_multirhs_launch": [i32, vp, vp, vp, vp, i32, i64, i32,
                                      i32, i32, vp],
         "dia_jacobi_sweep_multirhs_launch": [i32, vp, vp, vp, vp, vp, vp,

@@ -7,6 +7,10 @@ in csrc/, built by ops/build.py):
 
   dia_spmv                   csrc/dia.cu   replaces dia_spmv_pallas
   dia_jacobi_sweep           csrc/dia.cu   replaces dia_jacobi_sweep_pallas
+                                           (both: a tile's x windows and,
+                                           bf16 or a small grid, its
+                                           table rows staged in shared
+                                           memory by dia_row_plan)
   dia_spmv_multirhs          csrc/dia.cu   replaces dia_spmv_multirhs_pallas
   dia_jacobi_sweep_multirhs  csrc/dia.cu   replaces
                                            dia_jacobi_sweep_multirhs_pallas
@@ -46,6 +50,23 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
 DIA_MAX_OFFS = 64            # csrc/dia.cu DIA_MAX_OFFS: the 1-RHS kernels
                              # (to_dia_ell keeps up to 64 offsets)
+# the 1-RHS DIA kernels (dia_row_plan): rows a thread (1 or 2), each
+# dtype's halved while there would be fewer than ROW_MIN_TILES tiles of
+# ROW_THREADS threads (one for each SM of an H100) or the table rows of
+# the least tile pass ROW_SMEM_BYTES; whether a tile's table rows are
+# staged in shared memory (else each thread loads its coefficients from
+# device memory; a grid under ROW_MIN_TILES tiles stages them in every
+# dtype); threads a block (at most csrc/dia.cu kRowMaxThreads),
+# halved down to ROW_MIN_THREADS while a tile's staged rows take more
+# than ROW_SMEM_BYTES (the default dynamic shared memory limit,
+# csrc/dia.cu kRowSmemBytes)
+ROW_ROWS = {torch.float32: 2, torch.bfloat16: 2, torch.float64: 1}
+ROW_TABLE_STAGED = {torch.float32: False, torch.bfloat16: True,
+                    torch.float64: False}
+ROW_THREADS = 256
+ROW_MIN_THREADS = 32
+ROW_MIN_TILES = 132
+ROW_SMEM_BYTES = 49_152
 DIA_STAGE_MAX_OFFS = 48      # csrc/dia.cu DIA_STAGE_MAX_OFFS: the staged
                              # multi-RHS kernels (the DIA format's 48)
 MAX_RHS = 64                 # s limit of the multi-RHS kernels
@@ -168,35 +189,179 @@ def _dia_args(name, data, offs, n, *ts, max_offs=DIA_MAX_OFFS):
     return nd, ld
 
 
-def _c_offs(offs):
-    return (ctypes.c_int * len(offs))(*[int(o) for o in offs])
+class DiaRowPlan(NamedTuple):
+    """How the 1-RHS DIA kernels cut their work (csrc/dia.cu): a block of
+    `threads` (T) threads owns a tile of R = `rows` T rows, thread t the
+    rows t + r T (r < `rows`), `blocks` tiles.  `tstaged`: the block
+    stages its nd table rows, each `tstride` = R + V elements (V = `vec`,
+    16 bytes of items; `table_bytes` in all).  The sorted offsets merge
+    into `windows` (lo, hi) at that tile (stage_windows); window k stages
+    the x rows from the tile's row plus `lo[k]` (its lo rounded down to a
+    multiple of V) on, `lens[k]` of them (R + hi - lo[k] + V - 1, rounded
+    up to V: room for x's lead, the elements between the 16-byte boundary
+    the copies start from and x's first element), from staged x element
+    `base[k]` on: `stage_bytes` in all.  `staged` where they fit
+    ROW_SMEM_BYTES beside the table rows (and x is not empty); then x[i +
+    offs[d]] of the tile's row i - b sits at staged x element i - b +
+    xo[d] + lead, and (`center` >= 0, offset 0 in a window) x[i] at i - b
+    + center + lead; else x is read from device memory.  The sweep
+    (`sweep`) also stages the tile's b and dw, R + V elements each
+    (`vec_bytes`)."""
+    offs: tuple
+    vec: int
+    rows: int
+    threads: int
+    blocks: int
+    tstride: int
+    tstaged: bool
+    staged: bool
+    windows: tuple
+    lo: tuple
+    lens: tuple
+    base: tuple
+    xo: tuple
+    center: int
+    table_bytes: int
+    stage_bytes: int
+    vec_bytes: int
+
+    @property
+    def smem_bytes(self):
+        return ((self.table_bytes if self.tstaged else 0)
+                + (self.stage_bytes if self.staged else 0) + self.vec_bytes)
+
+    def tag(self):
+        x = (f"x staged K={len(self.windows)}" if self.staged else
+             f"x via L1/L2 (K={len(self.windows)} windows need "
+             f"{self.stage_bytes} bytes)")
+        table = "table staged" if self.tstaged else "table direct"
+        return (f"RT={self.rows} T={self.threads} blocks={self.blocks} "
+                f"{table} {x} smem={self.smem_bytes}")
+
+
+def _row_layout(offs, tile, vec, item):
+    """(tstride, windows, lo, lens, table bytes, window bytes) of a tile
+    of `tile` rows."""
+    wins = stage_windows(offs, tile)
+    lo = tuple(w // vec * vec for w, _ in wins)
+    lens = tuple(_ceil(tile + hi - l + vec - 1, vec) * vec
+                 for l, (_, hi) in zip(lo, wins))
+    tstride = tile + vec
+    return (tstride, wins, lo, lens, len(offs) * tstride * item,
+            sum(lens) * item)
+
+
+@functools.lru_cache(maxsize=None)
+def dia_row_plan(offs, n, m, dtype, sweep=False):
+    """The plan of the 1-RHS DIA kernels for a table with offsets `offs`
+    (a tuple), n rows, an x of m rows and `dtype`, for the SpMV or
+    (`sweep`) the Jacobi sweep, from those shapes alone (it reads no
+    tensor, so a captured CUDA graph can run through it).  The table
+    rows are staged where ROW_TABLE_STAGED[dtype] says so or there are
+    fewer than ROW_MIN_TILES tiles of ROW_THREADS threads.  RT starts at
+    ROW_ROWS[dtype] and halves while there would be fewer than
+    ROW_MIN_TILES tiles of ROW_THREADS threads or the table rows of a
+    tile of ROW_MIN_THREADS exceed ROW_SMEM_BYTES; T starts at
+    ROW_THREADS and halves, down to ROW_MIN_THREADS, while the tile's
+    staged rows (table, b and dw, and, x not empty, the windows) exceed
+    ROW_SMEM_BYTES.  Cached on its arguments: one plan per shape."""
+    item = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // item
+    tstaged = (ROW_TABLE_STAGED[dtype]
+               or _ceil(n, ROW_THREADS * ROW_ROWS[dtype]) < ROW_MIN_TILES)
+
+    def table(layout):
+        return layout[4] if tstaged else 0
+
+    def fits(layout, tile):
+        return (table(layout) + (layout[5] if m > 0 else 0)
+                + (2 * (tile + vec) * item if sweep else 0)
+                <= ROW_SMEM_BYTES)
+
+    rows = ROW_ROWS[dtype]
+    while rows > 1 and (
+            _ceil(n, ROW_THREADS * rows) < ROW_MIN_TILES
+            or table(_row_layout(offs, ROW_MIN_THREADS * rows, vec, item))
+            > ROW_SMEM_BYTES):
+        rows //= 2
+    threads = ROW_THREADS
+    while threads > ROW_MIN_THREADS and not fits(
+            _row_layout(offs, threads * rows, vec, item), threads * rows):
+        threads //= 2
+    tile = threads * rows
+    layout = _row_layout(offs, tile, vec, item)
+    tstride, wins, lo, lens, tbytes, sbytes = layout
+    staged = m > 0 and fits(layout, tile)
+    base = tuple(sum(lens[:k]) for k in range(len(wins)))
+    which = [next(k for k, (a, b) in enumerate(wins) if a <= o <= b)
+             for o in offs]
+    xo = tuple(base[k] + o - lo[k] for o, k in zip(offs, which))
+    k0 = next((k for k, (a, b) in enumerate(wins) if a <= 0 <= b), None)
+    center = base[k0] - lo[k0] if staged and k0 is not None else -1
+    return DiaRowPlan(tuple(offs), vec, rows, threads, _ceil(n, tile),
+                      tstride, tstaged, staged, wins, lo, lens, base, xo,
+                      center, tbytes, sbytes,
+                      2 * (tile + vec) * item if sweep else 0)
+
+
+class _DiaRow(ctypes.Structure):
+    """ctypes mirror of csrc/dia.cu struct DiaRow."""
+    _fields_ = [(f, ctypes.c_int) for f in ("threads", "rows", "tstride",
+                                             "tstaged", "staged", "center",
+                                             "nwin", "xlen")] \
+        + [(f, ctypes.c_int * DIA_MAX_OFFS)
+           for f in ("off", "xo", "lo", "len", "base")]
+
+
+@functools.lru_cache(maxsize=None)
+def _row_arg(plan):
+    """The plan as the kernels take it."""
+    p = _DiaRow(threads=plan.threads, rows=plan.rows, tstride=plan.tstride,
+                tstaged=plan.tstaged, staged=plan.staged,
+                center=plan.center, nwin=len(plan.windows),
+                xlen=sum(plan.lens))
+    for d, (o, xo) in enumerate(zip(plan.offs, plan.xo)):
+        p.off[d], p.xo[d] = o, xo
+    for k, (lo, ln, b) in enumerate(zip(plan.lo, plan.lens, plan.base)):
+        p.lo[k], p.len[k], p.base[k] = lo, ln, b
+    return p
+
+
+def _row_plan(data, offs, n, m, sweep=False):
+    offs = offs if type(offs) is tuple else tuple(int(o) for o in offs)
+    return dia_row_plan(offs, n, m, data.dtype, sweep)
 
 
 def dia_spmv(data, offs, x, n):
     """DIA SpMV (csrc/dia.cu on CUDA, dia_spmv_plain on CPU).  data
     (nd, ld) with ld >= n, row aligned; offs a tuple of nd ints; x (m,).
-    On CUDA: nd <= 64 and x of the table's dtype."""
+    On CUDA: nd <= 64 and x of the table's dtype; the launch is cut by
+    dia_row_plan.  n = 0 launches nothing."""
     if _on_cpu(data, x):
         return dia_spmv_plain(data, offs, x, n)
     name = "dia_spmv"
     _check(name, x.ndim == 1, "x must be one-dimensional on CUDA")
     nd, ld = _dia_args(name, data, offs, n, x)
-    c_offs = _c_offs(offs)
-    lib = load()
     y = torch.empty(n, dtype=data.dtype, device=x.device)
+    if n == 0:
+        return y
+    m = x.shape[0]
+    plan = _row_plan(data, offs, n, m)
+    lib = load()
     with torch.cuda.device(x.device):
         rc = lib.dia_spmv_launch(DTYPE_CODES[data.dtype], _ptr(data),
-                                 _ptr(x), _ptr(y), c_offs, nd, ld, n,
-                                 x.shape[0], _stream(x))
+                                 _ptr(x), _ptr(y),
+                                 ctypes.byref(_row_arg(plan)), nd, ld, n, m,
+                                 _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return y
 
 
 def dia_jacobi_sweep(data, offs, x, b, dw):
-    """Fused DIA Jacobi sweep (csrc/dia.cu on CUDA); x, b, dw (n,) of the
-    table's dtype, nd <= 64.  Returns a new x; the input is not
-    overwritten."""
+    """Fused DIA Jacobi sweep (csrc/dia.cu on CUDA, cut as dia_spmv); x,
+    b, dw (n,) of the table's dtype, nd <= 64.
+    Returns a new x; the input is not overwritten."""
     if _on_cpu(data, x, b, dw):
         return dia_jacobi_sweep_plain(data, offs, x, b, dw)
     name = "dia_jacobi_sweep"
@@ -205,13 +370,15 @@ def dia_jacobi_sweep(data, offs, x, b, dw):
            f"shapes x{tuple(x.shape)} b{tuple(b.shape)} "
            f"dw{tuple(dw.shape)}")
     nd, ld = _dia_args(name, data, offs, n, x, b, dw)
-    c_offs = _c_offs(offs)
-    lib = load()
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    plan = _row_plan(data, offs, n, n, sweep=True)
+    lib = load()
     with torch.cuda.device(x.device):
         rc = lib.dia_jacobi_sweep_launch(
             DTYPE_CODES[data.dtype], _ptr(data), _ptr(x), _ptr(b), _ptr(dw),
-            _ptr(out), c_offs, nd, ld, n, _stream(x))
+            _ptr(out), ctypes.byref(_row_arg(plan)), nd, ld, n, _stream(x))
     _raise_rc(name, rc)
     LAUNCHES[name] += 1
     return out

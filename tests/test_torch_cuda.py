@@ -40,25 +40,165 @@ def _stencil(n):
                      for o in offs], offs).tocsr()
 
 
+def _diags(offs, n, m=None):
+    """An n x m operator with full random diagonals at `offs`."""
+    m = n if m is None else m
+    rng = np.random.RandomState(len(offs) + n)
+    return sp.diags([rng.rand(max(0, min(n, m - o) - max(0, -o))) - 0.5
+                     for o in offs], offs, shape=(n, m)).tocsr()
+
+
+# the 1-RHS DIA kernels' edge cases: (operator, extra table columns, so
+# ld = n + extra).  n odd, n = 0 (no launch), n below 16 bytes of rows
+# (V = 8 bf16, 4 f32, 2 f64), ld > n (every row's 16-byte shift moves),
+# n != m both ways, and the flagship's 27-point stencil
+ROW_CASES = {
+    "stencil": (lambda: _stencil(100_003), 0),
+    "grid33": (lambda: _grid27(33), 0),
+    "zero": (lambda: sp.csr_matrix((0, 0)), 0),
+    "n_below_v": (lambda: _diags((-1, 0, 1), 3), 0),
+    "ld_above_n": (lambda: _stencil(50_001), 5),
+    "tall": (lambda: _banded_rect(41_000, 30_001), 0),
+    "wide": (lambda: _banded_rect(30_001, 41_000), 0),
+}
+
+
+def _widened(D, extra):
+    if not extra:
+        return D.data
+    nd, ld = D.data.shape
+    wide = torch.zeros((nd, ld + extra), dtype=D.dtype,
+                       device=D.data.device)
+    wide[:, :ld] = D.data
+    return wide
+
+
+@pytest.fixture(params=["plan", "rt2", "flipped"])
+def row_tile(request, monkeypatch):
+    """The 1-RHS plan's own tile (a row a thread on these sizes), 2 rows
+    a thread (no least grid), or the other table staging (bf16 read from
+    device memory, f32 and f64 staged; no least grid)."""
+    if request.param == "rt2":
+        monkeypatch.setattr(hk, "ROW_MIN_TILES", 1)
+        monkeypatch.setattr(hk, "ROW_ROWS", dict.fromkeys(hk.ROW_ROWS, 2))
+    if request.param == "flipped":
+        monkeypatch.setattr(hk, "ROW_TABLE_STAGED", {
+            k: not v for k, v in hk.ROW_TABLE_STAGED.items()})
+        monkeypatch.setattr(hk, "ROW_MIN_TILES", 0)
+    hk.dia_row_plan.cache_clear()
+    yield request.param
+    hk.dia_row_plan.cache_clear()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROW_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float64])
-def test_dia_kernels_match_plain(card, dtype):
-    n = 100_003
-    D = to_dia(_stencil(n), dtype, card)
+def test_dia_kernels_match_plain(card, dtype, case, row_tile):
+    make, extra = ROW_CASES[case]
+    A = make()
+    n, m = A.shape
+    D = to_dia(A, dtype, card)
+    data = _widened(D, extra)
     g = torch.Generator().manual_seed(0)
+    x = torch.randn(m, generator=g).to(dtype).to(card)
+    b, dw = (torch.randn(n, generator=g).to(dtype).to(card)
+             for _ in range(2))
+    launched = int(n > 0)
+    before = dict(hk.LAUNCHES)
+    y = hk.dia_spmv(data, D.offs, x, n)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["dia_spmv"] == before["dia_spmv"] + launched
+    assert y.shape == (n,)
+    if n:
+        assert _rel(y, hk.dia_spmv_plain(data, D.offs, x, n)) \
+            <= LIMIT[dtype]
+    if n != m:
+        return
+    s = hk.dia_jacobi_sweep(data, D.offs, x, b, dw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["dia_jacobi_sweep"] == \
+        before["dia_jacobi_sweep"] + launched
+    assert s.shape == (n,)
+    if n:
+        assert _rel(s, hk.dia_jacobi_sweep_plain(data, D.offs, x, b, dw)) \
+            <= LIMIT[dtype]
+
+
+def _at_lead(t, lead):
+    """A copy of t whose storage starts `lead` elements past a 16-byte
+    boundary, as a row of an (m + 1, n) Krylov basis with n odd does."""
+    pad = 16 // t.element_size()
+    buf = torch.full((t.numel() + pad,), float("nan"), dtype=t.dtype,
+                     device=t.device)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[lead:lead + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stencil", "grid33", "ld_above_n"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_dia_kernels_take_unaligned_views(card, dtype, case, row_tile):
+    """The table, x, b and dw may start anywhere on their element size:
+    each at its own lead past a 16-byte boundary, NaN before and after
+    it (none of which may reach the result), against the plain version
+    on the same views."""
+    make, extra = ROW_CASES[case]
+    A = make()
+    n = A.shape[0]
+    D = to_dia(A, dtype, card)
+    g = torch.Generator().manual_seed(1)
     x, b, dw = (torch.randn(n, generator=g).to(dtype).to(card)
                 for _ in range(3))
-    before = dict(hk.LAUNCHES)
-    y = hk.dia_spmv(D.data, D.offs, x, n)
-    s = hk.dia_jacobi_sweep(D.data, D.offs, x, b, dw)
-    torch.cuda.synchronize()
-    assert hk.LAUNCHES["dia_spmv"] == before["dia_spmv"] + 1
-    assert hk.LAUNCHES["dia_jacobi_sweep"] == \
-        before["dia_jacobi_sweep"] + 1
-    assert _rel(y, hk.dia_spmv_plain(D.data, D.offs, x, n)) <= LIMIT[dtype]
-    assert _rel(s, hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, dw)) \
-        <= LIMIT[dtype]
+    V = 16 // x.element_size()
+    for lead in ((1, V - 1, V // 2, 1), (V - 1, 1, 1, V - 1)):
+        data, xv, bv, wv = (_at_lead(t, a % V) for t, a in zip(
+            (_widened(D, extra), x, b, dw), lead))
+        assert (xv.data_ptr() % 16) // xv.element_size() == lead[1] % V
+        before = dict(hk.LAUNCHES)
+        y = hk.dia_spmv(data, D.offs, xv, n)
+        s = hk.dia_jacobi_sweep(data, D.offs, xv, bv, wv)
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["dia_spmv"] == before["dia_spmv"] + 1
+        assert hk.LAUNCHES["dia_jacobi_sweep"] == \
+            before["dia_jacobi_sweep"] + 1
+        assert _rel(y, hk.dia_spmv_plain(data, D.offs, xv, n)) \
+            <= LIMIT[dtype]
+        assert _rel(s, hk.dia_jacobi_sweep_plain(data, D.offs, xv, bv,
+                                                 wv)) <= LIMIT[dtype]
+
+
+@pytest.mark.cuda
+def test_gmres_on_a_dia_hierarchy_at_odd_n(card):
+    """GMRES preconditioned by the flagship's f32 DIA hierarchy at 17^3
+    = 4,913 rows, every level DIA: the Arnoldi rows V[j] that the
+    V-cycle's l1-Jacobi sweeps take as b start 4 j n bytes into the
+    basis, off the 16-byte boundary unless 4 divides j.  The same cycles
+    as on the CPU (one, at rel_res 2e-6 there) and x within 1e-5 of the
+    CPU's (both lie within 3e-7 of the f64 solution on the CPU)."""
+    from parelag_tpu_torch import flagship as fl
+    from parelag_tpu_torch.solvers.cg import gmres
+    A_levels, P_levels, _ = fl.build_h1_structured(16, min_coarse=64,
+                                                   device="cpu")
+    n = A_levels[0].shape[0]
+    assert n == 4_913
+    b = np.random.RandomState(3).rand(n).astype(np.float32)
+    out = {}
+    for dev in ("cpu", card):
+        H, _ = fl.build_solver(A_levels, P_levels, dev)
+        before = dict(hk.LAUNCHES)
+        x, (cycles, res) = gmres(H.levels[0].A.matvec,
+                                 torch.as_tensor(b).to(dev),
+                                 precond=H.apply, rtol=1e-5, restart=10)
+        out[str(dev)] = (x.cpu().double(), int(cycles), float(res))
+    assert hk.LAUNCHES["dia_jacobi_sweep"] > before["dia_jacobi_sweep"]
+    assert hk.LAUNCHES["dia_spmv"] > before["dia_spmv"]
+    (xc, cc, rc), (xg, cg, rg) = out["cpu"], out[str(card)]
+    assert cg == cc == 1 and rg <= 1e-5 * np.linalg.norm(b)
+    assert (xg - xc).abs().max() <= 1e-5 * xc.abs().max()
 
 
 # the (values, x) dtype pairs of the BCSR kernels
@@ -521,22 +661,55 @@ def _dense_offsets(n, nd):
     return sp.diags([rng.rand(n - abs(o)) for o in offs], offs).tocsr()
 
 
+@pytest.fixture(params=["staged", "global", "staged-rt2", "global-rt2"])
+def x_route(request, monkeypatch):
+    """The plan's own choice, the same plan with x read from global
+    memory, and each with 2 rows a thread (no least grid)."""
+    if request.param.endswith("rt2"):
+        monkeypatch.setattr(hk, "ROW_MIN_TILES", 1)
+        monkeypatch.setattr(hk, "ROW_ROWS", dict.fromkeys(hk.ROW_ROWS, 2))
+    if request.param.startswith("global"):
+        plan = hk.dia_row_plan
+        monkeypatch.setattr(hk, "dia_row_plan",
+                            lambda *a: plan(*a)._replace(staged=False))
+        monkeypatch.setattr(hk.dia_row_plan, "cache_clear",
+                            plan.cache_clear, raising=False)
+    hk.dia_row_plan.cache_clear()
+    yield request.param
+    hk.dia_row_plan.cache_clear()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_dia_spmv_at_64_offsets(card, dtype):
+@pytest.mark.parametrize("extra", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_dia_spmv_at_64_offsets(card, dtype, extra, x_route):
     """The 1-RHS DIA kernels take up to 64 offsets (to_dia_ell keeps as
-    many); 65 are refused, and the staged multi-RHS kernel stays at 48."""
+    many), with x staged and read from global memory, on the table as
+    to_dia gives it and widened (ld = n + 3); 65 are refused, and the
+    staged multi-RHS kernel stays at 48."""
     n = 50_001
     D = to_dia(_dense_offsets(n, 64), dtype, card)
     assert len(D.offs) == 64
+    data = _widened(D, extra)
+    plan = hk.dia_row_plan(D.offs, n, n, dtype)
+    # staged unless the windows do not fit
+    assert plan.staged == (x_route.startswith("staged")
+                           and plan.table_bytes * plan.tstaged
+                           + plan.stage_bytes <= hk.ROW_SMEM_BYTES)
+    if x_route.endswith("rt2"):
+        assert plan.rows == 2
     g = torch.Generator().manual_seed(1)
     x, b, dw = (torch.randn(n, generator=g).to(dtype).to(card)
                 for _ in range(3))
-    y = hk.dia_spmv(D.data, D.offs, x, n)
-    s = hk.dia_jacobi_sweep(D.data, D.offs, x, b, dw)
+    before = dict(hk.LAUNCHES)
+    y = hk.dia_spmv(data, D.offs, x, n)
+    s = hk.dia_jacobi_sweep(data, D.offs, x, b, dw)
     torch.cuda.synchronize()
-    assert _rel(y, hk.dia_spmv_plain(D.data, D.offs, x, n)) <= LIMIT[dtype]
-    assert _rel(s, hk.dia_jacobi_sweep_plain(D.data, D.offs, x, b, dw)) \
+    assert hk.LAUNCHES["dia_spmv"] == before["dia_spmv"] + 1
+    assert hk.LAUNCHES["dia_jacobi_sweep"] == before["dia_jacobi_sweep"] + 1
+    assert _rel(y, hk.dia_spmv_plain(data, D.offs, x, n)) <= LIMIT[dtype]
+    assert _rel(s, hk.dia_jacobi_sweep_plain(data, D.offs, x, b, dw)) \
         <= LIMIT[dtype]
     D65 = to_dia(_dense_offsets(n, 65), dtype, card)
     with pytest.raises(ValueError, match="max 64"):

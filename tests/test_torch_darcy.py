@@ -596,9 +596,9 @@ SPE10_EDITS = [
     ('    solver info."""',
      '    solver info. device: where the "device" and "auto" multiplier\n'
      '    solvers run (HybridHdivL2.solve; None: the card); device_solves\n'
-     '    holds each level\'s HybridHdivL2.last_device and '
-     'device_hierarchies\n    its last_hierarchy (None where no device '
-     'solve ran)."""'),
+     '    holds each level\'s HybridHdivL2.last_device, '
+     'device_hierarchies\n    its last_hierarchy and device_operators its '
+     'last_operator (None where\n    no device solve ran)."""'),
     ('rtol=1e-8, rescale=True)',
      'rtol=1e-8, rescale=True, device=device)'),
     ('            out["iters"].append(hyb.n_mult)\n',
@@ -606,7 +606,9 @@ SPE10_EDITS = [
      '            out.setdefault("device_solves", []).append(\n'
      '                getattr(hyb, "last_device", None))\n'
      '            out.setdefault("device_hierarchies", []).append(\n'
-     '                getattr(hyb, "last_hierarchy", None))\n'),
+     '                getattr(hyb, "last_hierarchy", None))\n'
+     '            out.setdefault("device_operators", []).append(\n'
+     '                getattr(hyb, "last_operator", None))\n'),
 ]
 
 
