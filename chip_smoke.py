@@ -206,7 +206,7 @@ from parelag_tpu_torch.models.multigrid import multigrid_test_form
 from parelag_tpu_torch.parallel import dist_bench, mp_worker
 from parelag_tpu_torch.parallel.sharding import (
     RankMesh, backend_for, make_dd_mesh)
-from parelag_tpu_torch.ops import build, hopper_kernels as hk, native
+from parelag_tpu_torch.ops import build, graph_loop, hopper_kernels as hk, native
 from parelag_tpu_torch.solvers.amge_solver import (
     amge_pcg_solve, build_amge_hierarchy)
 from parelag_tpu_torch.ops.device_sparse import (
@@ -277,6 +277,9 @@ MP_WORLD = 2            # the processes of the mp solve and setup cases
 MP_SOLVE_LIMIT = 1e-10  # tests/_mp_worker.py's bound against spsolve
 MP_A_LIMIT, MP_P_LIMIT = 1e-13, 1e-14   # tests/_mp_setup_worker.py's
 CKPT_X_LIMIT = 1e-6     # the resumed flagship solve's x, relative
+LOOP_X_LIMIT = 1e-6     # a device program's x against its Python loop's,
+                        # relative (the same kernels in the same order:
+                        # bitwise is expected)
 
 # name -> (source, the TPU kernel it replaces (file:line), main path)
 SOURCES = {
@@ -297,6 +300,10 @@ SOURCES = {
                            "parelag_tpu/ops/device_sparse.py:118", "h1"),
     "ell_spmv": ("parelag_tpu_torch/csrc/ell.cu",
                  "parelag_tpu/ops/pallas_kernels.py:43", "maxwell"),
+    # no Pallas kernel: the `cond` of pcg's lax.while_loop, which XLA
+    # evaluates on the device (the port's graph loop test)
+    "pcg_loop_test": ("parelag_tpu_torch/csrc/loop.cu",
+                      "parelag_tpu/solvers/cg.py:36", "h1"),
 }
 # the kernel-phase variant each kernel's {"kernels"} entry reports (the
 # first, except where the main path runs the second: the bf16 sweeps of
@@ -647,6 +654,64 @@ def _ho_rows(rows, H, Hb, A0, dev, rng):
         del csr
 
 
+LOOP_TEST_NOTE = ("no single PyTorch call computes any(nom > tol2) & "
+                  "(it < maxiter)")
+
+
+def _loop_test_rows(rows, dev, rng):
+    """pcg_loop_test against loop_test_plain at the device programs'
+    shapes (one column in f32, as the 1-RHS solves; N_RHS in f32, as the
+    block solve; one in f64, as the multigrid drivers), on cases that
+    hit each branch (r.z above, at and below its bound, a NaN, the
+    counter one step from maxiter): the counter and the flag must agree
+    exactly.  ms times one launch with step 0 (in place, no change);
+    the bound counts nom and tol2 read, the counter read and written
+    and the flag written."""
+    maxiter = 100
+    for s, dt in ((1, torch.float32), (N_RHS, torch.float32),
+                  (1, torch.float64)):
+        err = 0.0
+        for case in range(8):
+            tol2 = torch.as_tensor(rng.rand(s) + 0.1).to(dt)
+            nom = tol2 * torch.as_tensor(rng.choice([0.5, 1.0, 2.0], s)
+                                         ).to(dt)
+            if case == 1:
+                nom = tol2.clone()
+            if case == 2:
+                nom[-1] = float("nan")
+            it0 = maxiter - 1 if case in (3, 4) else int(rng.randint(0, 50))
+            step = case % 2
+            out = []
+            for on in ("cpu", dev):
+                it = torch.tensor(it0, dtype=torch.int32, device=on)
+                go = torch.zeros((), dtype=torch.bool, device=on)
+                graph_loop.pcg_loop_test(nom.to(on), tol2.to(on), it,
+                                         maxiter, step, go)
+                out.append((int(it), bool(go)))
+            err = max(err, abs(out[0][0] - out[1][0])
+                      + abs(int(out[0][1]) - int(out[1][1])))
+        nom, tol2 = nom.to(dev), tol2.to(dev)
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        go = torch.zeros((), dtype=torch.bool, device=dev)
+        nbytes = _nbytes(nom, tol2) + 2 * 4 + 1
+        row = dict(variant=f"s={s} {_TAG[dt]}", max_abs_err=err,
+                   max_rel_err=err, limit=0.0,
+                   ms=_ms(lambda: graph_loop.pcg_loop_test(
+                       nom, tol2, it, maxiter, 0, go)),
+                   plain_ms=_ms(lambda: graph_loop.loop_test_plain(
+                       nom, tol2, it, maxiter)),
+                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                   bytes=nbytes, format_bytes=nbytes, flops=s,
+                   library_ms=None, library_note=LOOP_TEST_NOTE)
+        print(f"  pcg_loop_test[{row['variant']}] mismatches={err:g} "
+              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+              f"  bound {row['bound_ms']:.3g} ms (bytes)")
+        if err:
+            raise SystemExit(f"FAIL pcg_loop_test[{row['variant']}]: the "
+                             "counter or the flag differs from plain")
+        rows["pcg_loop_test"].append(row)
+
+
 def kernel_phase(h1_A, P0, maxwell, generic, darcy, spe10, library, ho,
                  dist, dev):
     """Each kernel against its plain version at the main paths' shapes,
@@ -698,6 +763,7 @@ def kernel_phase(h1_A, P0, maxwell, generic, darcy, spe10, library, ho,
     _op_rows(rows, "library", library, dev, rng)
     _ho_rows(rows, *ho, dev, rng)
     _op_rows(rows, "dist", dist, dev, rng)
+    _loop_test_rows(rows, dev, rng)
     return rows
 
 
@@ -750,8 +816,9 @@ def _path(name, fn):
     """Drive one main path with every launch counter at 0 just before;
     returns (its result, the launches read just after)."""
     hk.reset_launches()
+    graph_loop.reset_launches()
     out = fn()
-    launches = dict(hk.LAUNCHES)
+    launches = graph_loop.snapshot()
     print(f"  launches on the {name} path: {launches}")
     return out, launches
 
@@ -1229,6 +1296,71 @@ def check_ho(rec, launches, Hb):
         raise SystemExit("FAIL ho path: " + "; ".join(fails))
 
 
+def check_device_loop(solves):
+    """The device programs of the main paths' PCG solves (compile_pcg:
+    one CUDA graph, the loop test on the card) against the same solves'
+    Python loops, from the lanes' records (flagship.loop_record): per
+    solve (name, record, the launches of its path) the same iterations
+    warm and in every timed solve, x within LOOP_X_LIMIT, the same hand
+    kernels launched in the timed solves, pcg_loop_test launched once a
+    test (iterations + 1 a solve) and on the path, and the captured
+    body's kernel nodes of the hand-written kernels equal to its counted
+    launches (cudaGraphGetNodes), all its kernel nodes at least as
+    many."""
+    fails, out = [], []
+    for name, rec, launches in solves:
+        it, itp = rec["loop_iters"], rec["python_loop_iters"]
+        row = dict(solve=name, loop=rec["loop"], iters=it,
+                   python_loop_iters=itp, timed_iters=rec["timed_iters"],
+                   x_rel=rec["python_loop_x_rel"],
+                   wall_ms=rec["solve_s"] * 1e3,
+                   python_loop_wall_ms=rec["python_loop_s"] * 1e3,
+                   wall_ms_all=[t * 1e3 for t in rec["solve_s_all"]],
+                   python_loop_wall_ms_all=[
+                       t * 1e3 for t in rec["python_loop_s_all"]],
+                   compile_s=rec["compile_s"],
+                   graph_nodes=rec["graph_nodes"],
+                   body_launches=rec.get("body_launches"),
+                   body_kernel_nodes=rec.get("body_kernel_nodes"),
+                   body_own_kernel_nodes=rec.get("body_own_kernel_nodes"),
+                   loop_tests=rec["loop_tests"], kernels=rec["kernels"])
+        out.append(row)
+        print(f"  {name}: iterations {it} (Python loop {itp}; timed "
+              f"{rec['timed_iters']}), x rel diff {row['x_rel']:.3e}, "
+              f"wall {row['wall_ms']:.3f} ms (Python loop "
+              f"{row['python_loop_wall_ms']:.3f} ms), compile_s "
+              f"{row['compile_s']:.4f}, graph_nodes {row['graph_nodes']} "
+              f"(body: {row['body_own_kernel_nodes']} hand-kernel nodes of "
+              f"{row['body_kernel_nodes']}, {row['body_launches']} counted "
+              f"launches), kernels {rec['kernels']}")
+        bad = []
+        if rec["loop"] != "device":
+            bad.append(f"loop {rec['loop']}")
+        if it != itp or set(rec["timed_iters"]) != {it}:
+            bad.append(f"iterations {it} / timed {rec['timed_iters']} vs "
+                       f"the Python loop's {itp}")
+        if not row["x_rel"] <= LOOP_X_LIMIT:
+            bad.append(f"x differs by {row['x_rel']} > {LOOP_X_LIMIT}")
+        if rec["kernels"] != rec["python_loop_kernels"]:
+            bad.append(f"kernels {rec['kernels']} vs the Python loop's "
+                       f"{rec['python_loop_kernels']}")
+        tests = sum(i + 1 for i in rec["timed_iters"])
+        if rec["loop_tests"] != tests:
+            bad.append(f"pcg_loop_test {rec['loop_tests']} launches, not "
+                       f"{tests}")
+        if launches["pcg_loop_test"] <= 0:
+            bad.append("pcg_loop_test never launched on the path")
+        if (rec["body_own_kernel_nodes"] != rec["body_launches"]
+                or rec["body_kernel_nodes"] < rec["body_launches"]):
+            bad.append(f"the body's kernel nodes {rec['body_kernel_nodes']}"
+                       f" (hand-written {rec['body_own_kernel_nodes']}) vs "
+                       f"{rec['body_launches']} counted launches")
+        fails += [f"{name}: {b}" for b in bad]
+    print("  device_loop: " + json.dumps(out))
+    if fails:
+        raise SystemExit("FAIL device_loop: " + "; ".join(fails))
+
+
 def small_check_ho(dev):
     """lane_ho at NX_HO_SMALL^3, p = 2, on the card and on the CPU: equal
     coarse dims, iterations within one, both rel_res <= 1e-4."""
@@ -1415,7 +1547,8 @@ def dist_mp_path(dev, tmp):
 def mp_launches(records):
     """The kernel launches of every process of every run, summed (each
     process counts its own from 0)."""
-    return {k: sum(r["launches"][k] for r in records) for k in hk.LAUNCHES}
+    return {k: sum(r["launches"].get(k, 0) for r in records)
+            for k in graph_loop.snapshot()}
 
 
 def check_dist_mp(out, ref, solve_tables, smi):
@@ -1647,6 +1780,8 @@ def main():
           f"{mr['achieved_tflops']:.4f} col0 vs 1-RHS "
           f"{mr['col0_rel_diff']:.3e} ({mr['col0_iters']} iters)")
     check_h1(rec, l_h1)
+    loop_solves = [(f"h1 {NX}^3 1 RHS", rec, l_h1),
+                   (f"h1 {NX}^3 {N_RHS} RHS", mr, l_h1)]
     phase("h1", t0)
 
     t0 = time.perf_counter()
@@ -1661,6 +1796,7 @@ def main():
           f"{trec['solve_s']:.5f} (V(2,2) above: {rec['solve_s']:.5f}) "
           f"dof_iter_per_s {trec['dof_iter_per_s']:.4e}")
     check_h1_tuned(trec, l_h1t)
+    loop_solves.append((f"h1 {NX}^3 1 RHS, autotuned cycle", trec, l_h1t))
     del h1_levels
     phase("h1_autotuned", t0)
 
@@ -1670,6 +1806,7 @@ def main():
         "maxwell", lambda: maxwell_lane.lane_maxwell(NX_MAXWELL, dev))
     print("  record: " + json.dumps(mrec))
     check_maxwell(mrec, l_mx)
+    loop_solves.append((f"maxwell {NX_MAXWELL}^3", mrec, l_mx))
     phase("maxwell", t0)
 
     t0 = time.perf_counter()
@@ -1695,6 +1832,7 @@ def main():
           f"dof_iter_per_s={grec['dof_iter_per_s']:.4e} "
           f"kernels={grec['kernels']}")
     check_generic(grec, l_gen)
+    loop_solves.append((f"generic {NX_GENERIC}^3", grec, l_gen))
     phase("generic", t0)
 
     t0 = time.perf_counter()
@@ -1837,7 +1975,14 @@ def main():
           f"value={horec['value']:.4e} kernels={horec['kernels']}")
     check_ho(horec, l_ho, ho_Hb)
     small_check_ho(dev)
+    loop_solves.append((f"ho_p{HO_P} {NX_HO}^3", horec, l_ho))
     phase("ho", t0)
+
+    t0 = time.perf_counter()
+    print("device_loop (each timed PCG solve above as one CUDA graph, the "
+          "loop test on the card, beside its Python loop):")
+    check_device_loop(loop_solves)
+    phase("device_loop", t0)
 
     t0 = time.perf_counter()
     print("main path rcm (ho_lane.build_solver(..., reorder='rcm') on the "

@@ -8,6 +8,9 @@ Counterpart of bench.py's flagship lane (`_structured_chain`,
 The host pieces (boundary elimination, the Galerkin propagation of the
 elimination term, the f64 scipy anchor) are copies of the JAX bench's
 host code; `eliminate_rowcols` is models/upscaling.py's.
+Each timed solve is compiled once (compile_solve: on the card one CUDA
+graph with the loop test on the device, as bench.py jits its solve) and
+timed beside the same solve's Python loop (loop_record).
 With n_rhs set, lane_h1 adds the multi-RHS record of bench.py (block
 PCG on n_rhs right-hand sides through the same hierarchy); with
 cycle_cfg it runs that cycle (lane_autotune's winner, as bench.py feeds
@@ -30,9 +33,9 @@ from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.models.upscaling import eliminate_rowcols
 from parelag_tpu_torch.ops.device_sparse import (
     BC, BR, BcsrMatrix, DiaMatrix, EllMatrix)
-from parelag_tpu_torch.ops import hopper_kernels
+from parelag_tpu_torch.ops import graph_loop, hopper_kernels
 from parelag_tpu_torch.solvers.autotune import _factory, tune_cycle
-from parelag_tpu_torch.solvers.cg import pcg
+from parelag_tpu_torch.solvers.cg import compile_pcg, pcg
 from parelag_tpu_torch.solvers.hierarchy import build_hierarchy
 
 #: the flagship cycle: V(2,2) with l1-Jacobi smoothing
@@ -174,33 +177,102 @@ def build_solver(A_levels, P_levels, device=None, cycle_cfg=None):
     return H, H.cast(torch.bfloat16)
 
 
-def solve(H, Hb, b):
-    """f32 PCG on H's fine operator, preconditioned by one bf16 V-cycle
-    of Hb; b (n,) or (n, s) (block PCG, column-wise dots).  Returns
-    (x, (iterations, r.z))."""
+def _precond(Hb):
     def precond(r):
         return Hb.apply(r.to(torch.bfloat16)).to(torch.float32)
-    return pcg(H.levels[0].A.matvec, b, precond=precond, rtol=RTOL,
+    return precond
+
+
+def solve(H, Hb, b):
+    """f32 PCG on H's fine operator, preconditioned by one bf16 V-cycle
+    of Hb; b (n,) or (n, s) (block PCG, column-wise dots).  The loop
+    runs in Python (solvers/cg.pcg).  Returns (x, (iterations, r.z))."""
+    return pcg(H.levels[0].A.matvec, b, precond=_precond(Hb), rtol=RTOL,
                atol=0.0, maxiter=MAXITER)
 
 
-def _timed_solves(H, Hb, b):
-    """REPEATS solves of b timed with CUDA events: (seconds per solve,
-    iterations per solve, hand-kernel launches during them)."""
-    before = dict(hopper_kernels.LAUNCHES)
+def compile_solve(H, Hb, b_like):
+    """solve compiled for b_like's shape (solvers/cg.compile_pcg): on the
+    card one CUDA graph with the loop on the device, the same
+    iterations and x as solve.  Returns solve(b) -> (x, (iterations,
+    r.z)), a CompiledPcg."""
+    return compile_pcg(H.levels[0].A.matvec, b_like, precond=_precond(Hb),
+                       rtol=RTOL, atol=0.0, maxiter=MAXITER)
+
+
+def timed_solves(solve, b, repeats=REPEATS):
+    """`repeats` solves of b timed with CUDA events on the card and the
+    host clock on the CPU: (seconds per solve, iterations per solve,
+    hand-kernel launches during them: hopper_kernels.LAUNCHES's keys and
+    pcg_loop_test)."""
+    before = graph_loop.snapshot()
     times, iters = [], []
-    for _ in range(REPEATS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, (it, _) = solve(H, Hb, b)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
+    for _ in range(repeats):
+        if b.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, (it, _) = solve(b)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            _, (it, _) = solve(b)
+            times.append(time.perf_counter() - t0)
         iters.append(int(it))
-    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
-               for k in hopper_kernels.LAUNCHES}
-    return times, iters, kernels
+    return times, iters, graph_loop.delta(graph_loop.snapshot(), before)
+
+
+def _ported(launches):
+    """The launches of the ports of the TPU kernels alone (the records'
+    `kernels`)."""
+    return {k: launches[k] for k in hopper_kernels.LAUNCHES}
+
+
+def _x_rel(x, xp):
+    """max over columns of ||x - xp|| / ||xp||, in f64."""
+    x, xp = x.double(), xp.double()
+    num = torch.linalg.norm((x - xp).reshape(x.shape[0], -1), dim=0)
+    den = torch.linalg.norm(xp.reshape(x.shape[0], -1), dim=0)
+    return float((num / den.clamp(min=1e-300)).max())
+
+
+def loop_record(python_solve, solve, b, repeats=REPEATS):
+    """A lane's timed solves of b through its compiled solve (`solve`: a
+    CompiledPcg, or a function running the one in its `compiled`
+    attribute) beside the same solve's Python loop (`python_solve`), as
+    bench.py times a jitted solve after its first call.  Fields: loop ("device": one CUDA graph; "plain": the
+    CPU program), compile_s (capture and instantiate), graph_nodes,
+    loop_iters (a warm solve's iterations), solve_s (median) /
+    solve_s_all / timed_iters / kernels of the compiled solve,
+    loop_tests (pcg_loop_test launches), python_loop_iters /
+    python_loop_s (median) / python_loop_s_all / python_loop_kernels,
+    python_loop_x_rel (the largest column's relative difference of the
+    two warm x); on the card also body_launches (the counted launches of
+    one captured body), body_kernel_nodes and body_own_kernel_nodes (its
+    kernel nodes, all and the hand-written kernels')."""
+    x, (it, _) = solve(b)
+    xp, (itp, _) = python_solve(b)
+    times, iters, launches = timed_solves(solve, b, repeats)
+    ptimes, _, plaunches = timed_solves(python_solve, b, repeats)
+    compiled = getattr(solve, "compiled", solve)
+    prog = compiled.program
+    rec = dict(loop="plain" if prog is None else "device",
+               compile_s=compiled.compile_s,
+               graph_nodes=compiled.graph_nodes, loop_iters=int(it),
+               solve_s=float(np.median(times)), solve_s_all=times,
+               timed_iters=iters, kernels=_ported(launches),
+               loop_tests=launches["pcg_loop_test"],
+               python_loop_s=float(np.median(ptimes)),
+               python_loop_s_all=ptimes, python_loop_iters=int(itp),
+               python_loop_kernels=_ported(plaunches),
+               python_loop_x_rel=_x_rel(x, xp))
+    if prog is not None:
+        rec.update(body_launches=sum(prog.body.values()),
+                   body_kernel_nodes=prog.body_nodes[1],
+                   body_own_kernel_nodes=prog.body_nodes[2])
+    return rec
 
 
 def _stored_entries(M):
@@ -221,15 +293,17 @@ def _stored_entries(M):
 def multirhs_record(H, Hb, A0, n_rhs):
     """The multi-RHS record of bench.py's lane_h1 (bench.py:582-614) on
     the hierarchy of the 1-RHS solve: block PCG on B =
-    RandomState(0).randn(ndofs, n_rhs) in f32, one warm solve checked
-    column by column in host f64 (rel_res_max), column 0 solved alone
-    on the card for comparison (col0_rel_diff), then REPEATS timed
-    solves (median)."""
+    RandomState(0).randn(ndofs, n_rhs) in f32 compiled once
+    (compile_solve), one warm solve checked column by column in host f64
+    (rel_res_max), column 0 solved alone on the card for comparison
+    (col0_rel_diff), then REPEATS timed replays (median) beside the
+    Python loop (loop_record)."""
     device = next(H.buffers()).device
     ndofs = A0.shape[0]
     B = np.random.RandomState(0).randn(ndofs, n_rhs).astype(np.float32)
     Bt = torch.as_tensor(B).to(device)
-    X, (it, _) = solve(H, Hb, Bt)
+    compiled = compile_solve(H, Hb, Bt)
+    X, (it, _) = compiled(Bt)
     niter = int(it)
     Xh = X.double().cpu().numpy()
     B64 = B.astype(np.float64)
@@ -238,8 +312,8 @@ def multirhs_record(H, Hb, A0, n_rhs):
     x0, (it0, _) = solve(H, Hb, Bt[:, 0].contiguous())
     x0h = x0.double().cpu().numpy()
     col0 = float(np.linalg.norm(Xh[:, 0] - x0h) / np.linalg.norm(x0h))
-    times, timed_iters, kernels = _timed_solves(H, Hb, Bt)
-    solve_s = float(np.median(times))
+    loop = loop_record(lambda v: solve(H, Hb, v), compiled, Bt)
+    solve_s = loop["solve_s"]
     # bench.py's flop model: 2 flops per stored operator entry per RHS
     # for every SpMV of an iteration (fine matvec + V(2,2) cycle)
     # (bench.py counts A only where it is DIA)
@@ -252,22 +326,22 @@ def multirhs_record(H, Hb, A0, n_rhs):
     ent += dia_entries(H.levels[0].A)
     flops_iter = 2 * ent * n_rhs
     return dict(n_rhs=n_rhs, iters=niter, converged=niter < MAXITER,
-                timed_iters=timed_iters, solve_s=solve_s,
-                solve_s_all=times,
-                value=ndofs * niter * n_rhs / solve_s,
+                **loop, value=ndofs * niter * n_rhs / solve_s,
                 unit="dof_iter_per_s", flops_per_iter=flops_iter,
                 achieved_tflops=flops_iter * niter / solve_s / 1e12,
                 rel_res_max=float(rel.max()), rel_res_cols=rel.tolist(),
-                col0_iters=int(it0), col0_rel_diff=col0, kernels=kernels)
+                col0_iters=int(it0), col0_rel_diff=col0)
 
 
 def lane_h1(nx, device=None, n_rhs=None, min_coarse=256, cycle_cfg=None,
             levels=None):
     """The flagship record on the card: setup (structured chain + device
-    hierarchy), one warm f32 PCG solve checked in host f64, REPEATS
-    solves timed with CUDA events (median), and the host f64 scipy
-    anchor on the same matrices.  `kernels` holds the hand-kernel
-    launches of the timed solves, read after them.  With n_rhs, the
+    hierarchy), the solve compiled once (compile_solve: one CUDA graph),
+    one warm f32 PCG solve checked in host f64, REPEATS replays timed
+    with CUDA events (median) beside the same solve's Python loop
+    (loop_record's fields), and the host f64 scipy anchor on the same
+    matrices.  `kernels` holds the hand-kernel launches of the timed
+    solves (init + body x iterations of the graph).  With n_rhs, the
     record's "multirhs" entry is multirhs_record on the same hierarchy.
     cycle_cfg: the cycle (a DEFAULT_GRID row of solvers/autotune, None:
     CYCLE); the host anchor smooths with its sweeps (a Chebyshev
@@ -294,15 +368,16 @@ def lane_h1(nx, device=None, n_rhs=None, min_coarse=256, cycle_cfg=None,
     ndofs = A_levels[0].shape[0]
 
     bt = torch.as_tensor(b.astype(dtype)).to(device)
-    x, (it, _) = solve(H, Hb, bt)
+    compiled = compile_solve(H, Hb, bt)
+    x, (it, _) = compiled(bt)
     niter = int(it)
     xh = x.double().cpu().numpy()
     b64 = b.astype(np.float64)
     rel = float(np.linalg.norm(b64 - A_levels[0].astype(np.float64) @ xh)
                 / np.linalg.norm(b64))
 
-    times, timed_iters, kernels = _timed_solves(H, Hb, bt)
-    solve_s = float(np.median(times))
+    loop = loop_record(lambda v: solve(H, Hb, v), compiled, bt)
+    solve_s = loop["solve_s"]
 
     out = dict(metric="h1_amge_vcycle_pcg_throughput", ndofs=ndofs,
                cycle_cfg=dict(cfg), sweeps=sweeps,
@@ -313,9 +388,7 @@ def lane_h1(nx, device=None, n_rhs=None, min_coarse=256, cycle_cfg=None,
                transfers=[type(l.P).__name__ for l in H.levels
                           if l.P is not None],
                setup_s=setup_s, iters=niter, converged=niter < MAXITER,
-               timed_iters=timed_iters, rel_res=rel, solve_s=solve_s,
-               solve_s_all=times, dof_iter_per_s=ndofs * niter / solve_s,
-               kernels=kernels)
+               rel_res=rel, **loop, dof_iter_per_s=ndofs * niter / solve_s)
     if rel > RTOL:
         # the f32 solve's floor, reported beside the value
         out["rel_res_floor"] = rel

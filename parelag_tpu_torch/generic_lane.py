@@ -34,7 +34,8 @@ from parelag_tpu_torch.models.upscaling import (
 from parelag_tpu_torch.ops import hopper_kernels
 from parelag_tpu_torch.partitioning.partitioners import cartesian_partition
 from parelag_tpu_torch.solvers.amge_solver import (
-    amge_pcg_solve, build_amge_hierarchy)
+    build_amge_hierarchy, compile_amge_pcg)
+from parelag_tpu_torch.solvers.cg import pcg
 from parelag_tpu_torch.topology.topology import AgglomeratedTopology
 from parelag_tpu_torch.utils.timing import TimeManager
 
@@ -140,10 +141,12 @@ def lane_generic(nx=NX, backends=("device",), device=None,
     """The generic record: the topology chain, then per backend the
     setup split ({backend}_fe_s, _coarsen_s, _setup_s, _dof_per_s,
     _timers, _dims), then on the last backend's chain the f32 hierarchy
-    and PCG: one warm solve checked in host f64 (rel_res), REPEATS timed
-    solves (CUDA events on the card, the host clock on the CPU; the
-    median is solve_s), `kernels` = the hand-kernel launches of the
-    timed solves, and the host f64 anchor on the same matrices.  Returns
+    and PCG compiled once (compile_amge_pcg: on the card one CUDA graph):
+    one warm solve checked in host f64 (rel_res), REPEATS timed solves
+    beside the Python loop's (flagship.loop_record; CUDA events on the
+    card, the host clock on the CPU; the median is solve_s), `kernels` =
+    the hand-kernel launches of the timed solves, and the host f64
+    anchor on the same matrices.  Returns
     (record, (A_levels, P_levels, b, H, seqs)), H the f32 hierarchy the
     solve ran, seqs its DeRhamSequence chain; device None: the card."""
     device = resolve_device(device)
@@ -181,36 +184,20 @@ def lane_generic(nx=NX, backends=("device",), device=None,
 
     bt = torch.as_tensor(b.astype(np.float32)).to(device)
     A0 = H.levels[0].A
-
-    def solve():
-        return amge_pcg_solve(H, A0, bt, rtol=RTOL, atol=0.0,
-                              maxiter=MAXITER, device=device)
-
-    x, (it, _) = solve()
+    solve = compile_amge_pcg(H, A0, bt, rtol=RTOL, atol=0.0,
+                             maxiter=MAXITER)
+    x, (it, _) = solve(bt)
     niter = int(it)
     b64 = np.asarray(b, dtype=np.float64)
     rel = float(np.linalg.norm(b64 - A @ x.astype(np.float64))
                 / np.linalg.norm(b64))
 
-    before = dict(hopper_kernels.LAUNCHES)
-    times, timed_iters = [], []
-    for _ in range(REPEATS):
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            _, (it, _) = solve()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t1 = time.perf_counter()
-            _, (it, _) = solve()
-            times.append(time.perf_counter() - t1)
-        timed_iters.append(int(it))
-    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
-               for k in hopper_kernels.LAUNCHES}
-    solve_s = float(np.median(times))
+    def python_solve(v):
+        return pcg(A0.matvec, v, precond=H.apply, rtol=RTOL, atol=0.0,
+                   maxiter=MAXITER)
+
+    loop = flagship.loop_record(python_solve, solve.compiled, bt)
+    solve_s = loop["solve_s"]
 
     Ah = [a.astype(np.float64) for a in A_levels]
     Ph = [p.astype(np.float64) for p in P_levels]
@@ -227,11 +214,10 @@ def lane_generic(nx=NX, backends=("device",), device=None,
         transfers=[type(l.P).__name__ for l in H.levels
                    if l.P is not None],
         iters=niter, converged=niter < MAXITER, rtol=RTOL, rel_res=rel,
-        timed_iters=timed_iters, solve_s=solve_s, solve_s_all=times,
-        dof_iter_per_s=ndofs * niter / solve_s,
+        **loop, dof_iter_per_s=ndofs * niter / solve_s,
         timer="cuda_events" if on_card else "host_clock",
         host_iters=ith, host_solve_s=host_dt,
-        host_dof_iter_per_s=ndofs * ith / host_dt, kernels=kernels)
+        host_dof_iter_per_s=ndofs * ith / host_dt)
     out["vs_baseline"] = out["dof_iter_per_s"] / out["host_dof_iter_per_s"]
     return out, (A_levels, P_levels, b, H, seqs)
 

@@ -34,7 +34,7 @@ from parelag_tpu_torch.models.upscaling import (
 from parelag_tpu_torch.ops import hopper_kernels
 from parelag_tpu_torch.partitioning.partitioners import cartesian_partition
 from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
-from parelag_tpu_torch.solvers.cg import pcg
+from parelag_tpu_torch.solvers.cg import compile_pcg, pcg
 from parelag_tpu_torch.topology.topology import AgglomeratedTopology
 from parelag_tpu_torch.utils.timing import TimeManager
 
@@ -94,45 +94,45 @@ def build_solver(seqs, A, device=None, reorder=None):
     return H, H.cast(torch.bfloat16), A_levels, P_levels
 
 
-def solve(H, Hb, b):
-    """f32 PCG on H's fine operator preconditioned by one bf16 V-cycle of
-    Hb; b an f32 tensor in the original numbering (a reordered H solves
-    in its permuted space).  Returns (x, (iterations, r.z))."""
+def _precond(Hb):
     def precond(r):
         return Hb.apply(r.to(torch.bfloat16)).to(torch.float32)
+    return precond
 
+
+def solve(H, Hb, b):
+    """f32 PCG on H's fine operator preconditioned by one bf16 V-cycle of
+    Hb, the loop in Python; b an f32 tensor in the original numbering (a
+    reordered H solves in its permuted space).  Returns (x, (iterations,
+    r.z))."""
     if H.perm is not None:
         b = b[H.perm]
-    x, info = pcg(H.levels[0].A.matvec, b, precond=precond, rtol=RTOL,
-                  atol=0.0, maxiter=MAXITER)
+    x, info = pcg(H.levels[0].A.matvec, b, precond=_precond(Hb),
+                  rtol=RTOL, atol=0.0, maxiter=MAXITER)
     if H.iperm is not None:
         x = x[H.iperm]
     return x, info
 
 
-def timed_solves(H, Hb, bt):
-    """REPEATS solves, timed with CUDA events on the card and the host
-    clock on the CPU: (seconds, iterations, hand-kernel launches)."""
-    dev = bt.device
-    before = dict(hopper_kernels.LAUNCHES)
-    times, iters = [], []
-    for _ in range(REPEATS):
-        if dev.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            _, (it, _) = solve(H, Hb, bt)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            _, (it, _) = solve(H, Hb, bt)
-            times.append(time.perf_counter() - t0)
-        iters.append(int(it))
-    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
-               for k in hopper_kernels.LAUNCHES}
-    return times, iters, kernels
+def compile_solve(H, Hb, b_like):
+    """solve compiled for b_like's shape (solvers/cg.compile_pcg; on the
+    card one CUDA graph with the loop on the device); a reordered H's
+    permutations of b and x stay outside the graph.  Returns solve(b) ->
+    (x, (iterations, r.z)) with the CompiledPcg as solve.compiled."""
+    compiled = compile_pcg(H.levels[0].A.matvec, b_like,
+                           precond=_precond(Hb), rtol=RTOL, atol=0.0,
+                           maxiter=MAXITER)
+
+    def run(b):
+        if H.perm is not None:
+            b = b[H.perm]
+        x, info = compiled(b)
+        if H.iperm is not None:
+            x = x[H.iperm]
+        return x, info
+
+    run.compiled = compiled
+    return run
 
 
 def rel_res(A, b, x):
@@ -143,12 +143,13 @@ def rel_res(A, b, x):
 
 
 def lane_ho(nx=NX, p=P, device=None):
-    """The ho_p{p} record: the setup split, one warm solve checked in host
-    f64 (rel_res, rel_res_floor above RTOL as bench.py records it),
-    REPEATS timed solves (median solve_s, value = ndofs * iters /
-    solve_s), formats / transfers / level_shapes per level, `kernels`
-    (the hand-kernel launches of the timed solves) and the host f64
-    anchor on the same matrices.  Returns (record, (seqs, A, b, H, Hb,
+    """The ho_p{p} record: the setup split, the solve compiled once
+    (compile_solve), one warm solve checked in host f64 (rel_res,
+    rel_res_floor above RTOL as bench.py records it), REPEATS timed
+    solves beside the Python loop's (flagship.loop_record: median
+    solve_s, value = ndofs * iters / solve_s), formats / transfers /
+    level_shapes per level, `kernels` (the hand-kernel launches of the
+    timed solves) and the host f64 anchor on the same matrices.  Returns (record, (seqs, A, b, H, Hb,
     x)); device None: the card."""
     device = resolve_device(device)
     if device.type == "cuda":
@@ -164,11 +165,12 @@ def lane_ho(nx=NX, p=P, device=None):
     ndofs = A.shape[0]
 
     bt = torch.as_tensor(b.astype(np.float32)).to(device)
-    x, (it, _) = solve(H, Hb, bt)
+    run = compile_solve(H, Hb, bt)
+    x, (it, _) = run(bt)
     niter = int(it)
     rel = rel_res(A, b, x)
-    times, timed_iters, kernels = timed_solves(H, Hb, bt)
-    solve_s = float(np.median(times))
+    loop = flagship.loop_record(lambda v: solve(H, Hb, v), run, bt)
+    solve_s = loop["solve_s"]
 
     Ah = [a.astype(np.float64) for a in A_levels]
     Ph = [q.astype(np.float64) for q in P_levels]
@@ -187,8 +189,7 @@ def lane_ho(nx=NX, p=P, device=None):
                rel_res=rel, setup_s=setup_s, topo_s=split["topo_s"],
                fe_s=split["fe_s"], coarsen_s=split["coarsen_s"],
                coarsen_timers=split["timers"], hierarchy_s=hierarchy_s,
-               timed_iters=timed_iters, solve_s=solve_s,
-               solve_s_all=times, value=ndofs * niter / solve_s,
+               **loop, value=ndofs * niter / solve_s,
                unit="dof_iter_per_s",
                timer="cuda_events" if device.type == "cuda"
                else "host_clock",
@@ -197,7 +198,7 @@ def lane_ho(nx=NX, p=P, device=None):
                formats=[type(l.A).__name__ for l in H.levels],
                transfers=[type(l.P).__name__ for l in H.levels
                           if l.P is not None],
-               kernels=kernels, host_iters=host_iters,
+               host_iters=host_iters,
                host_solve_s=host_dt)
     if rel > RTOL:
         # the f32 solve's floor in true f64 terms, as bench.py records it

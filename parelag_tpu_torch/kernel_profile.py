@@ -1,6 +1,7 @@
 """Device-time profile of the port's main paths on the card.
 
     python -m parelag_tpu_torch.kernel_profile       # 96^3, 24^3, 64^3
+    python -m parelag_tpu_torch.kernel_profile --loop device,python
     python -m parelag_tpu_torch.kernel_profile --nx 32 --nx-maxwell 8 \
         --nx-generic 16
     python -m parelag_tpu_torch.kernel_profile --memory-only
@@ -10,9 +11,10 @@
     python -m parelag_tpu_torch.kernel_profile --darcy 64
     python -m parelag_tpu_torch.kernel_profile --library 5
     python -m parelag_tpu_torch.kernel_profile --spe10 30,55,21
-    python -m parelag_tpu_torch.kernel_profile --ho 16
+    python -m parelag_tpu_torch.kernel_profile --ho 16 [--loop python]
     python -m parelag_tpu_torch.kernel_profile --formats
     python -m parelag_tpu_torch.kernel_profile --dist 8 [--dist-ny 4,32]
+    python -m parelag_tpu_torch.kernel_profile --dist 8 --dist-mp
     python -m parelag_tpu_torch.kernel_profile --dia [--dia-variants]
         [--ablate compute|fill] [--dia-darcy 64]
 
@@ -28,8 +30,12 @@ build_amge_hierarchy: a memory row too), and it traces with
 torch.profiler (CPU and CUDA activities):
 
   * solves: REPS solves each of the 1-RHS flagship PCG, the 16-RHS block
-    PCG, the Maxwell PCG and the generic AMGe PCG (amge_pcg_solve), after
-    one warm-up solve: wall time per
+    PCG, the Maxwell PCG and the generic AMGe PCG, after one warm-up
+    solve, each compiled once as one CUDA graph and replayed (--loop
+    device, the default: solvers/cg.compile_pcg through the lanes'
+    compile_solve and compile_amge_pcg; compile_s and graph_nodes in the
+    row) or with the loop in Python (--loop python, solvers/cg.pcg;
+    --loop device,python gives both rows): wall time per
     solve (CUDA events, median, no profiler attached; wall_ms_profiled
     is the traced solves' host time), device busy time (the sum of the
     CUDA kernels', copies' and fills' device time in the trace), the
@@ -84,7 +90,8 @@ library call and bound.
 
 --ho NX profiles the high-order lane at NX^3, p = 2 (ho_lane: the
 setup with pass 2 on the card, then a memory row for its f32 hierarchy
-and bf16 cast): a solve row for the f32 PCG with the bf16 V-cycle (wall
+and bf16 cast): a solve row for the f32 PCG with the bf16 V-cycle (as
+one CUDA graph, or with --loop python the Python loop; wall
 against device busy, the idle share, device time by hand kernel and by
 torch kernel), and kernel rows for A0 (f32 ELL; bf16 ELL with bf16 and
 with f32 x) and the bf16 BCSR P0 / R0 (bf16 and f32 x), each with
@@ -198,6 +205,7 @@ KERNEL_NAMES = {
     "bcsr_row_spmm_kernel": "bcsr_spmv_multirhs",
     "bcsr_row_spmv_kernel": "bcsr_spmv",
     "ell_spmv_kernel": "ell_spmv",
+    "pcg_loop_test_kernel": "pcg_loop_test",
 }
 
 
@@ -293,6 +301,28 @@ def _solve_row(name, fn):
                 idle_share=1.0 - busy / 1e3 / (wall * 1e3), **info,
                 by_kernel={k: dict(device_ms=v[0] / 1e3, launches=v[1])
                            for k, v in top})
+
+
+def _loops(spec):
+    loops = spec.split(",")
+    if not loops or set(loops) - {"device", "python"}:
+        raise SystemExit(f"--loop {spec}: device and/or python")
+    return loops
+
+
+def _loop_solve_row(name, loop, python_solve, compile_solve, b):
+    """_solve_row of one solve of b with its loop in Python (loop
+    "python": python_solve()) or as one CUDA graph (loop "device": the
+    compiled solve compile_solve() returns, compiled before the row and
+    replayed in it), with the loop and, for "device", compile_s and
+    graph_nodes."""
+    if loop == "python":
+        return dict(_solve_row(name, python_solve), loop=loop)
+    solve = compile_solve()
+    compiled = getattr(solve, "compiled", solve)    # a CompiledPcg
+    return dict(_solve_row(name, lambda: solve(b)), loop=loop,
+                compile_s=compiled.compile_s,
+                graph_nodes=compiled.graph_nodes)
 
 
 def _library_csr(M):
@@ -786,14 +816,24 @@ def _spe10(cells, dev, emit):
     hk.load()
     _, out = darcy_lane.lane_spe10(cells, dev)
     rng = np.random.RandomState(7)
-    for l, H in enumerate(out["device_hierarchies"]):
+    for l, (H, Hd) in enumerate(zip(out["device_hierarchies"],
+                                    out["device_operators"])):
+        if hasattr(Hd, "dia"):
+            D = Hd.dia
+            x = torch.as_tensor(rng.randn(D.shape[1]).astype(np.float32)
+                                ).to(dev)
+            row = _timed_row("dia_spmv", f"spe10 L{l} Hd DIA part f32 "
+                             f"nd={len(D.offs)} n={D.shape[0]}", D, x)
+            row.update(bound_us=_bound_us(_sparse_bytes(D), 2 * _nnz(D)),
+                       nnz=_nnz(D))
+            emit(row)
         if H is not None:
             for row in _operator_rows(f"spe10 L{l} SA", level_operators(H),
                                       dev, rng):
                 emit(row)
 
 
-def _ho(nx, dev, emit):
+def _ho(nx, dev, emit, loop="device"):
     """The --ho rows (see the module docstring)."""
     from parelag_tpu_torch import ho_lane
     hk.load()
@@ -805,8 +845,11 @@ def _ho(nx, dev, emit):
         lambda: ho_lane.build_solver(seqs, A, dev), dev)
     emit(mem)
     bt = torch.as_tensor(b.astype(np.float32)).to(dev)
-    emit(_solve_row(f"ho_p{ho_lane.P} {nx}^3 f32 PCG, bf16 V(2,2)",
-                    lambda: ho_lane.solve(H, Hb, bt)))
+    for lp in _loops(loop):
+        emit(_loop_solve_row(
+            f"ho_p{ho_lane.P} {nx}^3 f32 PCG, bf16 V(2,2)", lp,
+            lambda: ho_lane.solve(H, Hb, bt),
+            lambda: ho_lane.compile_solve(H, Hb, bt), bt))
     rng = np.random.RandomState(8)
     bf16, f32 = torch.bfloat16, torch.float32
     lvl, lvlb = H.levels[0], Hb.levels[0]
@@ -938,6 +981,43 @@ def _dist(n, nys, dev, emit):
             emit(row)
 
 
+#: (processes, ny_per_rank) of --dist-mp: the smoke's dist_mp runs, and
+#: the processes of its f64 solve case
+DIST_MP = ((2, 4), (2, 32), (4, 4))
+MP_WORLD = 2
+
+
+def _dist_mp(n, dev, emit):
+    """The --dist-mp rows: ell_spmv on each process's own rows of the
+    dist lane at every DIST_MP entry (a RankMesh of that world and rank:
+    _level reads only the mesh's rank range, no process group) and on
+    each process's f64 tables of mp_worker's solve case, as the smoke's
+    dist_operators builds them."""
+    from parelag_tpu_torch.parallel import dist_bench, mp_worker
+    from parelag_tpu_torch.parallel.sharding import RankMesh
+    hk.load()
+    rng = np.random.RandomState(10)
+    hiers = {}
+    for world, ny in DIST_MP:
+        if ny not in hiers:
+            hiers[ny] = dist_bench.build(n, ny)[1]
+        for rank in range(world):
+            mesh = RankMesh(n, dev, world=world, rank=rank)
+            levels = hiers[ny].device_args(mesh)[0]
+            for row in _operator_rows(
+                    f"dist_mp {world}p ny={ny} process {rank}",
+                    dist_bench.level_operators(levels), dev, rng):
+                emit(row)
+    solve_hier = mp_worker.solve_problem()[0]
+    for rank in range(MP_WORLD):
+        mesh = RankMesh(mp_worker.RANKS, dev, world=MP_WORLD, rank=rank)
+        for row in _operator_rows(
+                f"dist_mp solve {MP_WORLD}p process {rank}",
+                dist_bench.level_operators(solve_hier.device_args(mesh)[0]),
+                dev, rng):
+            emit(row)
+
+
 def _tune_ell(P0, Hm, dev, slots):
     """The ELL variants with hopper_kernels.ELL_SLOTS set to each S in
     slots; the setting and the plan cache are restored after."""
@@ -1017,6 +1097,14 @@ def main(argv=None):
                     "ranks (e.g. 8)")
     ap.add_argument("--dist-ny", default="4,32",
                     help="comma-separated ny_per_rank of the --dist rows")
+    ap.add_argument("--loop", default="device",
+                    help="the solve rows of the default profile and --ho, "
+                    "comma-separated: each solve compiled once as one CUDA "
+                    "graph with the loop on the card (device), and/or "
+                    "with the Python loop (python)")
+    ap.add_argument("--dist-mp", action="store_true",
+                    help="with --dist N: ell_spmv rows on each process's "
+                    "own tables of the dist_mp runs instead")
     ap.add_argument("--formats", action="store_true",
                     help="print only the A format of every level of every "
                     "lane's hierarchy")
@@ -1062,10 +1150,13 @@ def _run(args, emit):
         _spe10(tuple(int(c) for c in args.spe10.split(",")), dev, emit)
         return
     if args.ho:
-        _ho(args.ho, dev, emit)
+        _ho(args.ho, dev, emit, args.loop)
         return
     if args.formats:
         _formats(dev, emit)
+        return
+    if args.dist and args.dist_mp:
+        _dist_mp(args.dist, dev, emit)
         return
     if args.dist:
         _dist(args.dist, [int(v) for v in args.dist_ny.split(",")], dev,
@@ -1106,7 +1197,8 @@ def _run(args, emit):
     # imported here: --memory-only also runs against older checkouts
     from parelag_tpu_torch import generic_lane
     from parelag_tpu_torch.solvers.amge_solver import (
-        amge_pcg_solve, build_amge_hierarchy)
+        build_amge_hierarchy, compile_amge_pcg)
+    from parelag_tpu_torch.solvers.cg import pcg
 
     def build_generic():
         seqs, A, bg, _ = generic_lane.build_h1(args.nx_generic, "device",
@@ -1124,17 +1216,24 @@ def _run(args, emit):
         A_levels[0].shape[0], N_RHS).astype(np.float32)).to(dev)
     bmt = torch.as_tensor(bm.astype(np.float32)).to(dev)
     bgt = torch.as_tensor(bg.astype(np.float32)).to(dev)
-    for name, fn in [
-            (f"h1 {args.nx}^3 1 RHS", lambda: flagship.solve(H, Hb, bt)),
-            (f"h1 {args.nx}^3 {N_RHS} RHS", lambda: flagship.solve(H, Hb, B)),
-            (f"maxwell {args.nx_maxwell}^3",
-             lambda: maxwell_lane.solve(Hm, bmt)),
-            (f"generic {args.nx_generic}^3",
-             lambda: amge_pcg_solve(Hg, Hg.levels[0].A, bgt,
-                                    rtol=generic_lane.RTOL, atol=0.0,
-                                    maxiter=generic_lane.MAXITER,
-                                    device=dev))]:
-        emit(_solve_row(name, fn))
+    cases = [
+        (f"h1 {args.nx}^3 1 RHS", lambda: flagship.solve(H, Hb, bt),
+         lambda: flagship.compile_solve(H, Hb, bt), bt),
+        (f"h1 {args.nx}^3 {N_RHS} RHS", lambda: flagship.solve(H, Hb, B),
+         lambda: flagship.compile_solve(H, Hb, B), B),
+        (f"maxwell {args.nx_maxwell}^3", lambda: maxwell_lane.solve(Hm, bmt),
+         lambda: maxwell_lane.compile_solve(Hm, bmt), bmt),
+        (f"generic {args.nx_generic}^3",
+         lambda: pcg(Hg.levels[0].A.matvec, bgt, precond=Hg.apply,
+                     rtol=generic_lane.RTOL, atol=0.0,
+                     maxiter=generic_lane.MAXITER),
+         lambda: compile_amge_pcg(Hg, Hg.levels[0].A, bgt,
+                                  rtol=generic_lane.RTOL, atol=0.0,
+                                  maxiter=generic_lane.MAXITER), bgt)]
+    for name, python_solve, compile_solve, v in cases:
+        for loop in _loops(args.loop):
+            emit(_loop_solve_row(name, loop, python_solve, compile_solve,
+                                 v))
     emit(_launch_floor_row(dev))
     for row in _kernel_rows(H, Hb, P_levels[0], Hm, Hg, dev):
         emit(row)

@@ -25,11 +25,11 @@ import time
 import numpy as np
 import torch
 
-from parelag_tpu_torch import resolve_device
+from parelag_tpu_torch import flagship, resolve_device
 from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.models.upscaling import eliminate_rowcols
 from parelag_tpu_torch.ops import hopper_kernels
-from parelag_tpu_torch.solvers.cg import pcg
+from parelag_tpu_torch.solvers.cg import compile_pcg, pcg
 from parelag_tpu_torch.solvers.hierarchy import build_hierarchy, rap
 from parelag_tpu_torch.solvers.smoothers import make_hiptmair
 
@@ -78,23 +78,33 @@ def build_solver(A_levels, P_levels, D0, device=None):
 
 def solve(H, b):
     """f32 PCG on H's fine operator preconditioned by one V-cycle of H,
-    at the lane's RTOL/MAXITER.  Returns (x, (iterations, r.z))."""
+    at the lane's RTOL/MAXITER; the loop runs in Python.  Returns (x,
+    (iterations, r.z))."""
     return pcg(H.levels[0].A.matvec, b, precond=H.apply, rtol=RTOL,
                atol=0.0, maxiter=MAXITER)
 
 
-def solve_refined(H, A, b):
+def compile_solve(H, b_like):
+    """solve compiled for b_like's shape (solvers/cg.compile_pcg): on the
+    card one CUDA graph with the loop on the device.  Returns solve(b)
+    -> (x, (iterations, r.z)), a CompiledPcg."""
+    return compile_pcg(H.levels[0].A.matvec, b_like, precond=H.apply,
+                       rtol=RTOL, atol=0.0, maxiter=MAXITER)
+
+
+def solve_refined(H, A, b, solver=None):
     """The lane's solve: one f32 PCG from b, then up to RESTARTS f32
     solves of the host f64 residual while the true relative residual is
-    above RTOL and still falls.  Returns (x in f64, iterations of the
-    first solve, iterations in all, true relative residual)."""
+    above RTOL and still falls; each through `solver` (a compile_solve
+    of H; None: solve, the Python loop).  Returns (x in f64, iterations
+    of the first solve, iterations in all, true relative residual)."""
     device = next(H.buffers()).device
     A64 = A.astype(np.float64)
     b64 = np.asarray(b, dtype=np.float64)
+    run = solver or (lambda v: solve(H, v))
 
     def dev_solve(v):
-        y, (it, _) = solve(H, torch.as_tensor(v.astype(np.float32)
-                                              ).to(device))
+        y, (it, _) = run(torch.as_tensor(v.astype(np.float32)).to(device))
         return y.double().cpu().numpy(), int(it)
 
     x, first = dev_solve(b64)
@@ -119,10 +129,13 @@ def solve_refined(H, A, b):
 def lane_maxwell(nx, device=None):
     """The Maxwell record (bench.py::lane_maxwell's fields plus
     first_iters, the level shapes and formats, and `kernels`, the
-    hand-kernel launches of the timed solves).  solve_s is the median of
-    REPEATS f32 solves of b: CUDA events on the card, the host clock on
-    the CPU (timer says which).  value counts the iterations of that
-    timed solve (first_iters), not the restarts' that `iters` adds.
+    hand-kernel launches of the timed solves).  The f32 solve is
+    compiled once (compile_solve: on the card one CUDA graph) and runs
+    the restarts too; solve_s is the median of REPEATS solves of b
+    through it: CUDA events on the card, the host clock on the CPU
+    (timer says which), beside the Python loop's (flagship.loop_record's
+    fields).  value counts the iterations of that timed solve
+    (first_iters), not the restarts' that `iters` adds.
     Returns (record, (A_levels, P_levels, D0, b))."""
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -136,32 +149,17 @@ def lane_maxwell(nx, device=None):
         torch.cuda.synchronize(device)
     setup_s = time.perf_counter() - t0
 
-    x, first, niter, rel = solve_refined(H, A, b)
     bt = torch.as_tensor(np.asarray(b, dtype=np.float32)).to(device)
-    before = dict(hopper_kernels.LAUNCHES)
-    times = []
-    for _ in range(REPEATS):
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            solve(H, bt)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
-        else:
-            t1 = time.perf_counter()
-            solve(H, bt)
-            times.append(time.perf_counter() - t1)
-    kernels = {k: hopper_kernels.LAUNCHES[k] - before[k]
-               for k in hopper_kernels.LAUNCHES}
-    solve_s = float(np.median(times))
+    compiled = compile_solve(H, bt)
+    x, first, niter, rel = solve_refined(H, A, b, compiled)
+    loop = flagship.loop_record(lambda v: solve(H, v), compiled, bt)
+    solve_s = loop["solve_s"]
     n = A.shape[0]
     lvl0 = H.levels[0]
     out = dict(metric="maxwell_hiptmair_amge_pcg", ndofs=n, iters=niter,
                first_iters=first, rel_res=rel, setup_s=setup_s,
-               setup_backend="structured", solve_s=solve_s,
-               solve_s_all=times, value=n * first / solve_s,
+               setup_backend="structured", **loop,
+               value=n * first / solve_s,
                unit="dof_iter_per_s",
                timer="cuda_events" if on_card else "host_clock",
                level_shapes=[int(a.shape[0]) for a in A_levels],
@@ -169,8 +167,7 @@ def lane_maxwell(nx, device=None):
                transfers=[type(lvl0.P).__name__, type(lvl0.R).__name__],
                hiptmair=[type(lvl0.pre.D).__name__,
                          type(lvl0.pre.Dt).__name__,
-                         type(lvl0.pre.A_aux).__name__],
-               kernels=kernels)
+                         type(lvl0.pre.A_aux).__name__])
     if rel > RTOL:
         # the declared rtol is out of f32's reach: the floor, reported
         out["rel_res_floor"] = rel

@@ -5,8 +5,9 @@ Counterpart of parelag_tpu/models/multigrid.py (reference
 examples/MultigridTest{0,1,2}Form.cpp): build the multilevel de Rham
 hierarchy, assemble A = M + D^T W D for the form, build the AMGe
 multigrid solver (V-cycle with smoothers; Hiptmair smoothing for forms
-1/2) in f64 on the device, and solve there: solvers/cg.pcg with one cycle
-as the preconditioner, or the plain cycle loop (use_pcg=False).  The
+1/2) in f64 on the device, and solve there: solvers/cg.compile_pcg (on
+the card one CUDA graph) with one cycle as the preconditioner, or the
+plain cycle loop (use_pcg=False).  The
 acceptance criteria are the JAX package's: convergence to rtol and a
 bounded V-cycle convergence factor, with its golden iteration counts
 (tests/test_solvers.py).
@@ -22,7 +23,7 @@ from parelag_tpu_torch.models.upscaling import (
     build_hierarchy as build_seq_hierarchy, mark_dofs_on_bndr,
     boundary_rhs, eliminate_rowcols)
 from parelag_tpu_torch.solvers.amge_solver import build_amge_hierarchy
-from parelag_tpu_torch.solvers.cg import pcg
+from parelag_tpu_torch.solvers.cg import compile_pcg
 
 
 @dataclass
@@ -61,8 +62,8 @@ def multigrid_test_form(form, nref=2, smoother=None, sweeps=2,
 
     r0 = float(np.linalg.norm(b))
     if use_pcg:
-        x, (it, nom) = pcg(A_dev.matvec, bt, precond=H.apply, rtol=rtol,
-                           atol=atol, maxiter=200)
+        x, (it, nom) = compile_pcg(A_dev.matvec, bt, precond=H.apply,
+                                   rtol=rtol, atol=atol, maxiter=200)(bt)
         res = float(np.linalg.norm(b - A @ x.cpu().numpy()))
         it = int(it)
         conv = (res / r0) ** (1.0 / max(it, 1))

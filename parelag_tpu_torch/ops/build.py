@@ -27,9 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 # the shared CUDA runtime: the kernels launch through the process's
 # libcudart (the one PyTorch loaded), where torch.profiler sees them; a
-# statically linked runtime hides them from its traces
+# statically linked runtime hides them from its traces; libdl for
+# csrc/loop.cu's dladdr
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-              "-cudart", "shared")
+              "-cudart", "shared", "-ldl")
 
 #: result of the last build: {"path", "seconds", "built"}
 BUILD_INFO = {}
@@ -120,6 +121,7 @@ def load():
     signatures of its launchers declared."""
     lib = ctypes.CDLL(build())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    u64 = ctypes.c_ulonglong
     signatures = {
         # the DIA launchers take their plan struct by pointer
         "dia_spmv_launch": [i32, vp, vp, vp, vp, i32, i64, i32, i32, vp],
@@ -135,6 +137,14 @@ def load():
                                       i32, i32, vp],
         "ell_spmv_launch": [i32, i32, vp, vp, vp, vp, i32, i32, i32, i32,
                             i32, vp],
+        # csrc/loop.cu: the loop test and the graph helpers
+        "pcg_loop_test_launch": [i32, vp, vp, i32, vp, vp, i32, i32, u64,
+                                 i32, vp],
+        "loop_handle_create": [vp, ctypes.POINTER(u64)],
+        "loop_while_begin": [vp, vp, u64, ctypes.POINTER(vp)],
+        "loop_while_end": [vp],
+        "loop_last_error": [],
+        "loop_graph_count": [vp, ctypes.POINTER(i64)],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

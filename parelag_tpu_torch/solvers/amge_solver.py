@@ -10,7 +10,8 @@ potential space), dense direct solve at the coarsest level.  Each
 smoother is built from its level's operator in the hierarchy's dtype, as
 the JAX package's are on the TPU (the host RAP of an f32 A and an f64 P
 is f64).  reorder="rcm" permutes every level (build_hierarchy) and
-amge_pcg_solve solves in the permuted space.
+amge_pcg_solve solves in the permuted space.  compile_amge_pcg compiles
+the solve once for many right-hand sides (on the card one CUDA graph).
 """
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.solvers import smoothers as sm
-from parelag_tpu_torch.solvers.cg import pcg
+from parelag_tpu_torch.solvers.cg import compile_pcg
 from parelag_tpu_torch.solvers.hierarchy import build_hierarchy, rap
 
 
@@ -82,23 +83,43 @@ def build_ml_hiptmair(seqs, form, A_fine, sweeps=1, mu=1,
         dtype=dtype, matrix_format=matrix_format, device=device)
 
 
+def compile_amge_pcg(H, A, b_like, rtol=1e-6, atol=1e-12, maxiter=500):
+    """amge_pcg_solve compiled once for b_like's shape, dtype and device
+    (solvers/cg.compile_pcg: on the card one CUDA graph with the loop on
+    the device): PCG on A (A reordered H: its own level-0 operator) with
+    one cycle of H as the preconditioner; the permutations stay outside
+    the graph.  Returns solve(b) -> (x as numpy, (iterations, r.z)) with
+    the CompiledPcg as solve.compiled."""
+    if H.perm is not None:
+        A = H.levels[0].A
+    compiled = compile_pcg(A.matvec, b_like.to(A.dtype), precond=H.apply,
+                           rtol=rtol, atol=atol, maxiter=maxiter)
+
+    def solve(b):
+        bt = torch.as_tensor(b).to(device=compiled.device, dtype=A.dtype)
+        if H.perm is not None:
+            bt = bt[H.perm]
+        x, info = compiled(bt)
+        if H.iperm is not None:
+            x = x[H.iperm]
+        return x.cpu().numpy(), info
+
+    solve.compiled = compiled
+    return solve
+
+
 def amge_pcg_solve(H, A, b, rtol=1e-6, atol=1e-12, maxiter=500,
                    device=None):
     """PCG with one MG cycle of H as preconditioner (the reference's
     'Krylov + AMGe preconditioner' composition, CreateXFormParameterList)
     on the device operator A (e.g. H.levels[0].A), both on `device`
-    (None: the card); b (n,) numpy or tensor, taken in A's dtype.  A
-    reordered H (H.perm) solves in its permuted space on its own level-0
-    operator (A is then not used): b[perm] in, x[iperm] out.  Returns
-    (x as numpy, (iterations, r.z))."""
+    (None: the card); b (n,) numpy or tensor, taken in A's dtype.  The
+    solve is compiled for this b and run once (compile_amge_pcg), as the
+    JAX version jits its solve.  A reordered H (H.perm) solves in its
+    permuted space on its own level-0 operator (A is then not used):
+    b[perm] in, x[iperm] out.  Returns (x as numpy, (iterations,
+    r.z))."""
     device = resolve_device(device)
-    if H.perm is not None:
-        A = H.levels[0].A
-    bt = torch.as_tensor(b).to(device=device, dtype=A.dtype)
-    if H.perm is not None:
-        bt = bt[H.perm]
-    x, info = pcg(A.matvec, bt, precond=H.apply, rtol=rtol, atol=atol,
-                  maxiter=maxiter)
-    if H.iperm is not None:
-        x = x[H.iperm]
-    return x.cpu().numpy(), info
+    bt = torch.as_tensor(b).to(device)
+    return compile_amge_pcg(H, A, bt, rtol=rtol, atol=atol,
+                            maxiter=maxiter)(bt)

@@ -1,20 +1,31 @@
 """Krylov solvers (PyTorch).
 
-Counterpart of parelag_tpu/solvers/cg.py: `pcg`, `minres`, `bicgstab`,
-`gmres` and `pcg_host`.  The convergence rule of pcg is mfem CG's
-(reference ParELAG_KrylovSolver.hpp:25-144): stop when r.z <=
-max(rtol^2 * r0.z0, atol^2).  The JAX versions are lax.while_loop
-programs; here each loop runs in Python, on either device, and reads its
-stopping test on the host once per iteration (GMRES: once per restart).
+Counterpart of parelag_tpu/solvers/cg.py: `pcg`, `compile_pcg`,
+`make_pcg_stepper`, `minres`, `bicgstab`, `gmres` and `pcg_host`.  The
+convergence rule of pcg is mfem CG's (reference
+ParELAG_KrylovSolver.hpp:25-144): stop when r.z <= max(rtol^2 * r0.z0,
+atol^2).  The JAX versions are lax.while_loop programs that the JAX
+bench runs under jax.jit; here:
+  * compile_pcg is jax.jit(pcg): on a CUDA tensor the whole solve is one
+    captured CUDA graph whose loop is a WHILE node, its test set on the
+    card by the pcg_loop_test kernel (ops/graph_loop.py); the host reads
+    once, when the solve ends.  On a CPU tensor the same program runs
+    under a Python loop driven by the test's plain version.
+  * make_pcg_stepper is the JAX stepper: one step replayed as a CUDA
+    graph (eager on the CPU), r.z read on the host every steps_per_sync
+    steps.
+  * pcg, minres, bicgstab and gmres loop in Python, on either device,
+    and read their stopping test on the host once per iteration
+    (GMRES: once per restart).
 The rules, guards and return values are the JAX versions'; their dots
-are over all entries (jnp.vdot flattens), as here.  make_pcg_stepper,
-a TPU compile workaround, is not ported.
+are over all entries (jnp.vdot flattens), as here.
 """
 
 import numpy as np
 import torch
 
 from parelag_tpu_torch import resolve_device
+from parelag_tpu_torch.ops import graph_loop
 
 
 def pcg(matvec, b, precond=None, x0=None, rtol=1e-6, atol=1e-12,
@@ -48,6 +59,171 @@ def pcg(matvec, b, precond=None, x0=None, rtol=1e-6, atol=1e-12,
         nom = nom_new
         it += 1
     return x, (it, nom)
+
+
+class CompiledPcg:
+    """pcg compiled for one shape, dtype and device (compile_pcg).
+
+    Static buffers b, x, r, z, d, nom, tol2 and the int32 counter `it`
+    live on b_like's device; the init part and the loop body are pcg's,
+    with its guarded divisions, writing into those buffers in place (the
+    body's temporaries are freed at its end; under capture they come
+    from a memory pool kept with the graph).  On the card the program is one CUDA graph
+    (graph_loop.capture_while): init, a test, and a WHILE node over the
+    body and a test; `compile_s` is its capture and instantiation,
+    `graph_nodes` its node count and `program` the GraphProgram.  On the
+    CPU the body runs under a Python loop driven by
+    graph_loop.pcg_loop_test's plain version (compile_s 0, graph_nodes
+    0, program None)."""
+
+    def __init__(self, matvec, b_like, precond=None, rtol=1e-6, atol=1e-12,
+                 maxiter=500):
+        self.matvec = matvec
+        self.precond = precond if precond is not None else (lambda r: r)
+        self.rtol, self.atol, self.maxiter = rtol, atol, int(maxiter)
+        self.shape, self.dtype = tuple(b_like.shape), b_like.dtype
+        self.device = b_like.device
+        self.b, self.x, self.r, self.z, self.d = (
+            torch.zeros_like(b_like) for _ in range(5))
+        cols = self.shape[1:]
+        self.nom = torch.zeros(cols, dtype=self.dtype, device=self.device)
+        self.tol2 = torch.zeros_like(self.nom)
+        self.it = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.program, self.compile_s, self.graph_nodes = None, 0.0, 0
+        if self.device.type == "cuda":
+            self.program = graph_loop.capture_while(
+                self._init, self._body, self._test, self.device)
+            self.compile_s = self.program.compile_s
+            self.graph_nodes = self.program.nodes
+
+    def _init(self):
+        self.r.copy_(self.b - self.matvec(self.x))
+        self.z.copy_(self.precond(self.r))
+        self.d.copy_(self.z)
+        self.nom.copy_(torch.sum(self.r * self.z, dim=0))
+        self.tol2.copy_(torch.clamp(self.rtol * self.rtol * self.nom,
+                                    min=self.atol * self.atol))
+        self.it.zero_()
+
+    def _body(self):
+        Ad = self.matvec(self.d)
+        dAd = torch.sum(self.d * Ad, dim=0)
+        alpha = self.nom / torch.where(dAd != 0, dAd, torch.ones_like(dAd))
+        self.x.add_(alpha * self.d)
+        self.r.sub_(alpha * Ad)
+        self.z.copy_(self.precond(self.r))
+        nom_new = torch.sum(self.r * self.z, dim=0)
+        beta = nom_new / torch.where(self.nom != 0, self.nom,
+                                     torch.ones_like(self.nom))
+        self.d.mul_(beta).add_(self.z)
+        self.nom.copy_(nom_new)
+
+    def _test(self, step, handle=None):
+        return graph_loop.pcg_loop_test(self.nom, self.tol2, self.it,
+                                        self.maxiter, step, handle=handle)
+
+    def __call__(self, b, x0=None):
+        """Solve from b (x0: the start, None: zero).  Returns (x, (it,
+        r.z)) as pcg does: x a new tensor, it an int, r.z a tensor."""
+        if tuple(b.shape) != self.shape or b.dtype != self.dtype:
+            raise ValueError(f"b {b.dtype} {tuple(b.shape)}: compiled for "
+                             f"{self.dtype} {self.shape}")
+        self.b.copy_(b)
+        if x0 is None:
+            self.x.zero_()
+        else:
+            self.x.copy_(x0)
+        if self.program is None:
+            self._init()
+            go = self._test(0)
+            while bool(go):
+                self._body()
+                go = self._test(1)
+            return self.x.clone(), (int(self.it), self.nom.clone())
+        self.program.replay()
+        it = int(self.it)                  # the one host read of a solve
+        self.program.count_run(it)
+        return self.x.clone(), (it, self.nom.clone())
+
+
+def compile_pcg(matvec, b_like, precond=None, rtol=1e-6, atol=1e-12,
+                maxiter=500):
+    """jax.jit(lambda bb: pcg(matvec, bb, precond, ...)): pcg compiled
+    for b_like's shape, dtype and device.  Returns solve(b, x0=None) ->
+    (x, (it, r.z)), a CompiledPcg: on a CUDA tensor one captured graph
+    with the loop test on the card (the capture raises if the body
+    cannot be captured, e.g. on a host read; nothing falls back to the
+    Python loop), on a CPU tensor the same program under a Python loop.
+    Iterations and x are pcg's: the same operations in the same
+    order."""
+    return CompiledPcg(matvec, b_like, precond, rtol, atol, maxiter)
+
+
+def make_pcg_stepper(matvec, precond=None, steps_per_sync=2):
+    """The JAX make_pcg_stepper (parelag_tpu/solvers/cg.py:226-267): one
+    CG step (matvec + preconditioner + vector updates, its divisions
+    unguarded), convergence checked on the host every steps_per_sync
+    steps, so `it` may pass the stopping step by up to steps_per_sync -
+    1.  x0 = 0, r = b; the stop rule is pcg's (r.z <= max(rtol^2 nom0,
+    atol^2)).  On a CUDA b the init and the step are two captured
+    graphs (compiled at the first b of a shape and dtype, kept for the
+    next) and the host replays the step steps_per_sync times between
+    reads of r.z; on a CPU b they run eagerly.  Returns solve(b,
+    rtol=1e-6, atol=0.0, maxiter=500) -> (x, (niter, final r.z as a
+    float))."""
+    if precond is None:
+        precond = lambda r: r
+    programs = {}
+
+    def program(b):
+        key = (tuple(b.shape), b.dtype, b.device)
+        if key not in programs:
+            st = [torch.zeros_like(b) for _ in range(5)]     # b, x, r, z, d
+            nom = torch.zeros((), dtype=b.dtype, device=b.device)
+
+            def init():
+                bb, x, r, z, d = st
+                z.copy_(precond(bb))
+                x.zero_()
+                r.copy_(bb)
+                d.copy_(z)
+                nom.copy_(bb @ z)
+
+            def step():
+                _, x, r, z, d = st
+                Ad = matvec(d)
+                alpha = nom / (d @ Ad)
+                x.add_(alpha * d)
+                r.sub_(alpha * Ad)
+                z.copy_(precond(r))
+                nom_new = r @ z
+                d.mul_(nom_new / nom).add_(z)
+                nom.copy_(nom_new)
+
+            if b.device.type == "cuda":
+                st[0].copy_(b)
+                gi = graph_loop.capture(init, b.device)
+                gs = graph_loop.capture(step, b.device)
+                init, step = (lambda: (gi.replay(), gi.count_run()),
+                              lambda: (gs.replay(), gs.count_run()))
+            programs[key] = (st, nom, init, step)
+        return programs[key]
+
+    def solve(b, rtol=1e-6, atol=0.0, maxiter=500):
+        st, nom, init, step = program(b)
+        st[0].copy_(b)
+        init()
+        n = float(nom)
+        tol2 = max(rtol * rtol * n, atol * atol)
+        it = 0
+        while n > tol2 and it < maxiter:
+            for _ in range(min(steps_per_sync, maxiter - it)):
+                step()
+                it += 1
+            n = float(nom)
+        return st[1].clone(), (it, n)
+
+    return solve
 
 
 def _dot(u, v):

@@ -1102,3 +1102,164 @@ def test_multiprocess_nccl_on_cards(card, tmp_path):
     gap = np.linalg.norm(xc - x64) / np.linalg.norm(x64)
     x = np.load(x_out)
     assert np.linalg.norm(x - x1) / np.linalg.norm(x1) <= 2 * gap
+
+
+# ---- the device-resident PCG (solvers/cg.compile_pcg, ops/graph_loop) --
+
+LOOP_X_LIMIT = 1e-6     # the device program's x against the Python
+                        # loop's, relative (bitwise is expected: the same
+                        # kernels in the same order)
+
+
+def _loop_check(rec):
+    """A lane record's device program against its Python loop
+    (flagship.loop_record's fields)."""
+    assert rec["loop"] == "device" and rec["graph_nodes"] > 0
+    assert rec["loop_iters"] == rec["python_loop_iters"] > 0
+    assert set(rec["timed_iters"]) == {rec["loop_iters"]}
+    assert rec["python_loop_x_rel"] <= LOOP_X_LIMIT
+    assert rec["kernels"] == rec["python_loop_kernels"]
+    assert rec["loop_tests"] == sum(i + 1 for i in rec["timed_iters"])
+    # the captured body's nodes: one per counted launch of a hand kernel
+    assert rec["body_own_kernel_nodes"] == rec["body_launches"] > 0
+    assert rec["body_kernel_nodes"] >= rec["body_launches"]
+
+
+@pytest.mark.cuda
+def test_device_loop_flagship_on_card(card):
+    """flagship 24^3, 1 and 16 right-hand sides: the compiled solve
+    against the Python loop."""
+    from parelag_tpu_torch import flagship as fl
+    rec, _ = fl.lane_h1(24, card, n_rhs=16)
+    _loop_check(rec)
+    _loop_check(rec["multirhs"])
+    assert rec["kernels"]["dia_jacobi_sweep"] > 0
+    assert rec["multirhs"]["kernels"]["dia_jacobi_sweep_multirhs"] > 0
+
+
+@pytest.mark.cuda
+def test_device_loop_lanes_on_card(card):
+    """Maxwell 8^3 (Hiptmair, BCSR and ELL), generic 8^3 (AMGe) and
+    ho_p2 4^3 (bf16 BCSR A0): each compiled solve against its Python
+    loop."""
+    from parelag_tpu_torch import generic_lane, ho_lane
+    from parelag_tpu_torch import maxwell_lane as ml
+    rec, _ = ml.lane_maxwell(8, card)
+    _loop_check(rec)
+    assert rec["kernels"]["ell_spmv"] > 0
+    rec, _ = generic_lane.lane_generic(8, device=card)
+    _loop_check(rec)
+    rec, _ = ho_lane.lane_ho(4, device=card)
+    _loop_check(rec)
+    assert rec["kernels"]["bcsr_spmv"] > 0
+
+
+def _spd_on(card, n=3000, seed=5, dtype=np.float32):
+    from parelag_tpu_torch.ops.device_sparse import from_scipy
+    rng = np.random.RandomState(seed)
+    M = sp.random(n, n, density=6 / n, random_state=rng, format="csr")
+    A = (M @ M.T + 4 * sp.eye(n)).tocsr()
+    b = torch.as_tensor(rng.randn(n).astype(dtype)).to(card)
+    return from_scipy(A, dtype=dtype, device=card), b
+
+
+@pytest.mark.cuda
+def test_compiled_pcg_two_b_edges_and_counts(card):
+    """Two b through one capture give two fresh Python loops' x and
+    iterations; zero iterations (r0.z0 <= atol^2) and the maxiter cap
+    stop where pcg stops; each replay counts init + body x iterations
+    launches; the body's hand-kernel nodes equal its counted launches."""
+    from parelag_tpu_torch.ops import graph_loop as gl
+    from parelag_tpu_torch.solvers.cg import compile_pcg, pcg
+    A, b = _spd_on(card)
+    solve = compile_pcg(A.matvec, b, rtol=1e-5, atol=0.0)
+    prog = solve.program
+    assert prog.body_nodes[2] == sum(prog.body.values()) == 2
+    for v in (b, 2 * b + 1):
+        before = gl.snapshot()
+        x, (it, nom) = solve(v)
+        d = gl.delta(gl.snapshot(), before)
+        xp, (itp, nomp) = pcg(A.matvec, v, rtol=1e-5, atol=0.0)
+        assert it == itp > 0 and torch.equal(x, xp)
+        assert torch.equal(nom, nomp)
+        assert d["ell_spmv"] == 1 + it and d["pcg_loop_test"] == 1 + it
+    x, (it, _) = compile_pcg(A.matvec, b, rtol=1e-5, atol=1e3)(b)
+    assert it == 0 and not x.any()
+    x, (it, _) = compile_pcg(A.matvec, b, rtol=1e-12, atol=0.0,
+                             maxiter=3)(b)
+    xp, (itp, _) = pcg(A.matvec, b, rtol=1e-12, atol=0.0, maxiter=3)
+    assert it == itp == 3 and torch.equal(x, xp)
+
+
+@pytest.mark.cuda
+def test_compiled_pcg_host_read_raises_at_capture(card):
+    """A body that reads the card from the host cannot be captured: the
+    capture raises (nothing falls back to the Python loop), and the card
+    and the allocator work after it."""
+    from parelag_tpu_torch.solvers.cg import compile_pcg, pcg
+    A, b = _spd_on(card)
+
+    def matvec(v):
+        y = A.matvec(v)
+        if float(y.sum()) == 12345.0:          # a host read
+            y = y + 1
+        return y
+
+    with pytest.raises(RuntimeError):
+        compile_pcg(matvec, b, rtol=1e-5, atol=0.0)
+    torch.cuda.empty_cache()
+    x, (it, _) = compile_pcg(A.matvec, b, rtol=1e-5, atol=0.0)(b)
+    xp, (itp, _) = pcg(A.matvec, b, rtol=1e-5, atol=0.0)
+    assert it == itp and torch.equal(x, xp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, dtype", [(1, torch.float32),
+                                      (16, torch.float32),
+                                      (1, torch.float64),
+                                      (64, torch.float64)])
+def test_pcg_loop_test_kernel_matches_plain(card, s, dtype):
+    from parelag_tpu_torch.ops import graph_loop as gl
+    rng = np.random.RandomState(s)
+    for case in range(10):
+        tol2 = torch.as_tensor(rng.rand(s) + 0.1).to(dtype)
+        nom = tol2 * torch.as_tensor(rng.choice([0.5, 1.0, 2.0], s)
+                                     ).to(dtype)
+        if case == 1:
+            nom = tol2.clone()
+        if case == 2:
+            nom[0] = float("nan")
+        it0 = 9 if case in (3, 4) else int(rng.randint(0, 9))
+        out = []
+        for on in ("cpu", card):
+            it = torch.tensor(it0, dtype=torch.int32, device=on)
+            go = torch.zeros((), dtype=torch.bool, device=on)
+            gl.pcg_loop_test(nom.to(on), tol2.to(on), it, 10, case % 2, go)
+            out.append((int(it), bool(go)))
+        assert out[0] == out[1], (case, out)
+    with pytest.raises(ValueError):
+        gl.pcg_loop_test(torch.ones(65, device=card),
+                         torch.ones(65, device=card),
+                         torch.zeros((), dtype=torch.int32, device=card), 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps_per_sync", [1, 3])
+def test_pcg_stepper_on_card(card, steps_per_sync):
+    """make_pcg_stepper's two graphs (init, step) against the same
+    stepper on the CPU."""
+    from parelag_tpu_torch.ops.device_sparse import from_scipy
+    from parelag_tpu_torch.solvers.cg import make_pcg_stepper
+    A, b = _spd_on(card, dtype=np.float64)
+    rng = np.random.RandomState(5)
+    M = sp.random(3000, 3000, density=6 / 3000, random_state=rng,
+                  format="csr")
+    Ac = from_scipy((M @ M.T + 4 * sp.eye(3000)).tocsr(),
+                    dtype=np.float64, device="cpu")
+    solve = make_pcg_stepper(A.matvec, steps_per_sync=steps_per_sync)
+    solve_c = make_pcg_stepper(Ac.matvec, steps_per_sync=steps_per_sync)
+    for v in (b, 3 * b):
+        x, (it, nom) = solve(v, rtol=1e-10)
+        xc, (itc, _) = solve_c(v.cpu(), rtol=1e-10)
+        assert it == itc and it % steps_per_sync == 0
+        assert (x.cpu() - xc).abs().max() <= 1e-9 * xc.abs().max()
