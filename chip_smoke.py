@@ -1776,8 +1776,7 @@ def main():
           f"{rec['vs_baseline']:.2f}")
     print(f"  block PCG s={mr['n_rhs']}: iters={mr['iters']} "
           f"rel_res_max={mr['rel_res_max']:.3e} solve_s={mr['solve_s']:.5f}"
-          f" value={mr['value']:.4e} achieved_tflops="
-          f"{mr['achieved_tflops']:.4f} col0 vs 1-RHS "
+          f" value={mr['value']:.4e} col0 vs 1-RHS "
           f"{mr['col0_rel_diff']:.3e} ({mr['col0_iters']} iters)")
     check_h1(rec, l_h1)
     loop_solves = [(f"h1 {NX}^3 1 RHS", rec, l_h1),

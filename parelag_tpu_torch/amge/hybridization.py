@@ -28,6 +28,7 @@ import torch
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops import csr as C
+from parelag_tpu_torch.utils.timing import counter, span
 
 
 class HybridHdivL2:
@@ -412,43 +413,56 @@ class HybridHdivL2:
         n = Hcsr.shape[0]
         perm, Hd, Hier, npad, dtype, f32 = self._device_setup(
             Hcsr, device, dtype)
-        H64 = Hcsr.astype(np.float64)
-        x = np.zeros(n)
-        total_it = passes = 0
-        nrm = np.linalg.norm(gf)
-        inner_rt = max(rtol, 1e-6) if f32 else rtol   # f32 floor/sweep
-        rfull = np.zeros(npad)
-        dxfull = np.zeros(npad)
-        for _ in range(4 if f32 else 1):
+        # spans: "hybrid.refine" the host work of the passes and the
+        # copies between host and card, "krylov.pcg" (inside pcg) the
+        # inner solves
+        on_card = device.type != "cpu"
+        with span("hybrid.refine"):
+            H64 = Hcsr.astype(np.float64)
+            x = np.zeros(n)
+            total_it = passes = 0
+            nrm = np.linalg.norm(gf)
+            inner_rt = max(rtol, 1e-6) if f32 else rtol   # f32 floor/sweep
+            rfull = np.zeros(npad)
+            dxfull = np.zeros(npad)
             r = gf - H64 @ x
-            if np.linalg.norm(r) <= rtol * max(nrm, 1e-300):
-                break
-            rfull[:n] = r
-            b = torch.as_tensor(rfull[perm].astype(dtype)).to(device)
+        for _ in range(4 if f32 else 1):
+            with span("hybrid.refine"):
+                if np.linalg.norm(r) <= rtol * max(nrm, 1e-300):
+                    break
+                rfull[:n] = r
+                b = torch.as_tensor(rfull[perm].astype(dtype)).to(device)
+                if on_card:
+                    counter("hybrid.h2d_bytes", b.numel() * b.element_size())
             dx, (it, _) = pcg(Hd.matvec, b, precond=Hier.cycle,
                               rtol=inner_rt, atol=0.0, maxiter=2000)
-            dxfull[perm] = dx.double().cpu().numpy()
-            x = x + dxfull[:n]
-            total_it += int(it)
-            passes += 1
-        else:
-            r = gf - H64 @ x
-        self.last_iterations = total_it
-        self.last_passes = passes
-        self.last_hierarchy = Hier
-        self.last_operator = Hd
-        # what a lane reports of this solve (a later host solve on the
-        # same object overwrites last_iterations, never this)
-        self.last_device = dict(
-            device=str(device), dtype=np.dtype(dtype).name, n_mult=n,
-            npad=npad, iters=total_it, passes=passes,
-            rel_res=float(np.linalg.norm(r) / max(nrm, 1e-300)),
-            format=type(Hd).__name__,
-            dia_offsets=(len(Hd.dia.offs) if hasattr(Hd, "dia") else None),
-            sa_level_sizes=[int(l.A.shape[0]) for l in Hier.levels],
-            sa_formats=[type(l.A).__name__ for l in Hier.levels],
-            sa_transfers=[f"{type(l.P).__name__}/{type(l.R).__name__}"
-                          for l in Hier.levels if l.P is not None])
+            with span("hybrid.refine"):
+                dxh = dx.double().cpu()
+                if on_card:
+                    counter("hybrid.d2h_bytes",
+                            dxh.numel() * dxh.element_size())
+                dxfull[perm] = dxh.numpy()
+                x = x + dxfull[:n]
+                total_it += int(it)
+                passes += 1
+                r = gf - H64 @ x
+        with span("hybrid.refine"):
+            self.last_iterations = total_it
+            self.last_passes = passes
+            self.last_hierarchy = Hier
+            self.last_operator = Hd
+            # what a lane reports of this solve (a later host solve on the
+            # same object overwrites last_iterations, never this)
+            self.last_device = dict(
+                device=str(device), dtype=np.dtype(dtype).name, n_mult=n,
+                npad=npad, iters=total_it, passes=passes,
+                rel_res=float(np.linalg.norm(r) / max(nrm, 1e-300)),
+                format=type(Hd).__name__,
+                dia_offsets=(len(Hd.dia.offs) if hasattr(Hd, "dia") else None),
+                sa_level_sizes=[int(l.A.shape[0]) for l in Hier.levels],
+                sa_formats=[type(l.A).__name__ for l in Hier.levels],
+                sa_transfers=[f"{type(l.P).__name__}/{type(l.R).__name__}"
+                              for l in Hier.levels if l.P is not None])
         return x
 
     def solve(self, rhs_u, rhs_p, solver="direct", rtol=1e-10,
@@ -466,48 +480,64 @@ class HybridHdivL2:
         (rescaled) multiplier system — the library's composed named
         solver (ParELAG_HybridizationSolverFactory.cpp:135-141)."""
         import scipy.sparse.linalg as spla
-        g, ess_data = self.rhs_transform(rhs_u, rhs_p)
-        H = self.hybrid_system.copy()
-        mu = np.zeros(self.n_mult)
-        ess = self.ess_mult
-        mu[ess] = ess_data[ess]
-        g = g - H @ (mu * ess)
-        keep = ~ess
-        if keep.sum() == 0:
-            return self.recover(mu)
-        Hff = H[keep][:, keep].tocsc()
-        gf = g[keep]
-        if rescale:
-            d = self.rescaling[keep]
-            d = np.where(np.abs(d) > 0, d, 1.0)
-            Hff = sp.diags(d) @ Hff @ sp.diags(d)
-            gf = d * gf
+        # spans, together the whole call but for the device set-up's
+        # lookup (and build): "hybrid.transform", "hybrid.reduce" (the
+        # free multiplier system), the solver's ("hybrid.refine" and
+        # "krylov.pcg" on the device), "hybrid.recover"
+        with span("hybrid.transform"):
+            g, ess_data = self.rhs_transform(rhs_u, rhs_p)
         if solver == "auto":
             solver = ("device" if resolve_device(device).type == "cuda"
                       else "amg")
+        with span("hybrid.reduce"):
+            H = self.hybrid_system.copy()
+            mu = np.zeros(self.n_mult)
+            ess = self.ess_mult
+            mu[ess] = ess_data[ess]
+            g = g - H @ (mu * ess)
+            keep = ~ess
+            free = bool(keep.any())
+            if free:
+                Hff = H[keep][:, keep].tocsc()
+                gf = g[keep]
+                if rescale:
+                    d = self.rescaling[keep]
+                    d = np.where(np.abs(d) > 0, d, 1.0)
+                    Hff = sp.diags(d) @ Hff @ sp.diags(d)
+                    gf = d * gf
+                if inner is not None or solver != "direct":
+                    Hff = Hff.tocsr()
+        if free:
+            xf = self._solve_free(Hff, gf, rtol, solver, inner, device)
+        with span("hybrid.recover"):
+            if free:
+                mu[keep] = d * xf if rescale else xf
+            return self.recover(mu)
+
+    def _solve_free(self, Hff, gf, rtol, solver, inner, device):
+        """The free multiplier system's solve by `solver` (solve()'s
+        names, "auto" resolved; Hff CSC for "direct", else CSR)."""
+        import scipy.sparse.linalg as spla
         if inner is not None:
-            out = inner(Hff.tocsr(), gf, rtol)
+            out = inner(Hff, gf, rtol)
             xf, its = out if isinstance(out, tuple) else (out, 0)
             self.last_iterations = int(its)
         elif solver == "direct":
             xf = spla.spsolve(Hff, gf)
         elif solver == "device":
-            xf = self._device_solve(Hff.tocsr(), gf, rtol, device=device)
+            xf = self._device_solve(Hff, gf, rtol, device=device)
         elif solver == "amg":
-            xf = self._host_amg_solve(Hff.tocsr(), gf, rtol)
+            xf = self._host_amg_solve(Hff, gf, rtol)
         else:
-            Binv = self._facet_block_inverse(Hff.tocsr())
+            Binv = self._facet_block_inverse(Hff)
             M = spla.LinearOperator(Hff.shape, matvec=lambda r: Binv @ r)
             it = [0]
-            xf, info = spla.cg(Hff.tocsr(), gf, M=M, rtol=rtol,
+            xf, info = spla.cg(Hff, gf, M=M, rtol=rtol,
                                atol=0.0, maxiter=2000,
                                callback=lambda x: it.__setitem__(
                                    0, it[0] + 1))
             self.last_iterations = it[0]
-        if rescale:
-            xf = d * xf
-        mu[keep] = xf
-        return self.recover(mu)
+        return xf
 
     def _host_amg_solve(self, Hcsr, gf, rtol):
         """Host PCG + SA-AMG V-cycle on the multiplier system — the

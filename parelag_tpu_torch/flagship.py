@@ -31,8 +31,6 @@ import torch
 from parelag_tpu_torch import resolve_device, synchronize
 from parelag_tpu_torch.amge import structured as stc
 from parelag_tpu_torch.models.upscaling import eliminate_rowcols
-from parelag_tpu_torch.ops.device_sparse import (
-    BC, BR, BcsrMatrix, DiaMatrix, EllMatrix)
 from parelag_tpu_torch.ops import graph_loop, hopper_kernels
 from parelag_tpu_torch.solvers.autotune import _factory, tune_cycle
 from parelag_tpu_torch.solvers.cg import compile_pcg, pcg
@@ -275,21 +273,6 @@ def loop_record(python_solve, solve, b, repeats=REPEATS):
     return rec
 
 
-def _stored_entries(M):
-    """Stored operator entries as bench.py's flop model counts them:
-    the DIA table, ELL values, TileCoo tiles, and for BCSR the TPU's
-    padded tile array, nbr * kb tiles of 8 x 128, which the port does
-    not store (its BcsrMatrix keeps the nonzeros): flops_per_iter stays
-    the JAX lane's."""
-    if isinstance(M, DiaMatrix):
-        return M.data.numel()
-    if isinstance(M, EllMatrix):
-        return M.values.numel()
-    if isinstance(M, BcsrMatrix):
-        return M.nbr * M.kb * BR * BC
-    return M.tiles.numel() if hasattr(M, "tiles") else 0
-
-
 def multirhs_record(H, Hb, A0, n_rhs):
     """The multi-RHS record of bench.py's lane_h1 (bench.py:582-614) on
     the hierarchy of the 1-RHS solve: block PCG on B =
@@ -314,21 +297,9 @@ def multirhs_record(H, Hb, A0, n_rhs):
     col0 = float(np.linalg.norm(Xh[:, 0] - x0h) / np.linalg.norm(x0h))
     loop = loop_record(lambda v: solve(H, Hb, v), compiled, Bt)
     solve_s = loop["solve_s"]
-    # bench.py's flop model: 2 flops per stored operator entry per RHS
-    # for every SpMV of an iteration (fine matvec + V(2,2) cycle)
-    # (bench.py counts A only where it is DIA)
-    def dia_entries(M):
-        return _stored_entries(M) if isinstance(M, DiaMatrix) else 0
-
-    ent = sum(dia_entries(l.A) * (2 * 2 + 1)        # sweeps + residual
-              + _stored_entries(l.R) + _stored_entries(l.P)
-              for l in Hb.levels if l.coarse_inv is None)
-    ent += dia_entries(H.levels[0].A)
-    flops_iter = 2 * ent * n_rhs
     return dict(n_rhs=n_rhs, iters=niter, converged=niter < MAXITER,
                 **loop, value=ndofs * niter * n_rhs / solve_s,
-                unit="dof_iter_per_s", flops_per_iter=flops_iter,
-                achieved_tflops=flops_iter * niter / solve_s / 1e12,
+                unit="dof_iter_per_s",
                 rel_res_max=float(rel.max()), rel_res_cols=rel.tolist(),
                 col0_iters=int(it0), col0_rel_diff=col0)
 

@@ -172,16 +172,27 @@ class GraphProgram:
     """A captured program: `graph` (torch.cuda.CUDAGraph), the launches
     of its parts (`init`, and `body` for a loop), `compile_s` (warm-up
     excluded: capture and instantiate, ending in a synchronize), `nodes`
-    (all nodes of the graph, the loop body's included) and `body_nodes`
-    (graph_count of the loop body)."""
+    (all nodes of the graph, the loop body's included), `body_nodes`
+    (graph_count of the loop body) and, for a loop, `events`: the two
+    timing events recorded by the graph itself, before init and after
+    the WHILE node."""
 
-    def __init__(self, graph, init, body, compile_s, nodes, body_nodes):
+    def __init__(self, graph, init, body, compile_s, nodes, body_nodes,
+                 events=None):
         self.graph, self.init, self.body = graph, init, body
         self.compile_s, self.nodes = compile_s, nodes
         self.body_nodes = body_nodes
+        self.events = events
 
     def replay(self):
         self.graph.replay()
+
+    def device_seconds(self):
+        """The last run's seconds on the card, init to the loop's end,
+        from the graph's own events (no host submission in them); the
+        run must have ended."""
+        start, end = self.events
+        return start.elapsed_time(end) * 1e-3
 
     def count_run(self, iterations=0):
         """Add one run's launches to the counters: init + body x
@@ -235,11 +246,12 @@ def _failed(lib, device, pool):
 def capture_while(init, body, test, device):
     """Capture init(); test(0, h); WHILE { body(); test(1, h) } on
     `device` as one graph, h the WHILE node's conditional handle, which
-    test(step, handle) hands to pcg_loop_test.  The loop runs while the
-    last test said go, as lax.while_loop(cond, body) does.  init and body
-    run once each before the capture (warm-up).  Returns a
-    GraphProgram; raises if any part cannot be captured (a host read,
-    a synchronize)."""
+    test(step, handle) hands to pcg_loop_test, between two timing
+    events the graph records (GraphProgram.device_seconds).  The loop
+    runs while the last test said go, as lax.while_loop(cond, body)
+    does.  init and body run once each before the capture (warm-up).
+    Returns a GraphProgram; raises if any part cannot be captured (a
+    host read, a synchronize)."""
     lib = hk.load()
     stream, body_stream = _streams(device)
     _on(stream, init, lambda: test(0, None))
@@ -249,8 +261,12 @@ def capture_while(init, body, test, device):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     pool = torch.cuda.graph_pool_handle()
     body_pool = torch.cuda.MemPool()
+    # recorded by the graph: event-record nodes on the program's stream
+    events = tuple(torch.cuda.Event(enable_timing=True, external=True)
+                   for _ in range(2))
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
+            events[0].record()
             init()
             handle = ctypes.c_ulonglong()
             _rc("cudaGraphConditionalHandleCreate",
@@ -260,6 +276,7 @@ def capture_while(init, body, test, device):
             body_graph = _capture_body(lib, body_pool, stream,
                                        body_stream, handle.value, body,
                                        test)
+            events[1].record()
             after_body = snapshot()
     except BaseException:
         _failed(lib, device, pool)
@@ -273,7 +290,7 @@ def capture_while(init, body, test, device):
     prog = GraphProgram(graph, delta(after_init, snap),
                         delta(after_body, after_init),
                         time.perf_counter() - t0, nodes + body_nodes[0],
-                        body_nodes)
+                        body_nodes, events)
     prog.body_pool = body_pool       # as long as the graph
     return prog
 

@@ -26,6 +26,7 @@ import torch
 
 from parelag_tpu_torch import resolve_device
 from parelag_tpu_torch.ops import graph_loop
+from parelag_tpu_torch.utils.timing import TimeManager, span
 
 
 def pcg(matvec, b, precond=None, x0=None, rtol=1e-6, atol=1e-12,
@@ -35,30 +36,32 @@ def pcg(matvec, b, precond=None, x0=None, rtol=1e-6, atol=1e-12,
     The JAX version is one lax.while_loop program; here the loop runs in
     Python and reads the stopping test on the host once per iteration
     (one device sync each).  b may be (n,) or (n, s): dots are
-    column-wise and the loop runs until every column has converged."""
-    if precond is None:
-        precond = lambda r: r
-    x = torch.zeros_like(b) if x0 is None else x0
-    r = b - matvec(x)
-    z = precond(r)
-    d = z
-    dot = lambda u, v: torch.sum(u * v, dim=0)
-    nom = dot(r, z)
-    tol2 = torch.clamp(rtol * rtol * nom, min=atol * atol)
-    it = 0
-    while it < maxiter and bool(torch.any(nom > tol2)):
-        Ad = matvec(d)
-        dAd = dot(d, Ad)
-        alpha = nom / torch.where(dAd != 0, dAd, torch.ones_like(dAd))
-        x = x + alpha * d
-        r = r - alpha * Ad
+    column-wise and the loop runs until every column has converged.  A
+    call is the span "krylov.pcg" (utils/timing.py)."""
+    with span("krylov.pcg"):
+        if precond is None:
+            precond = lambda r: r
+        x = torch.zeros_like(b) if x0 is None else x0
+        r = b - matvec(x)
         z = precond(r)
-        nom_new = dot(r, z)
-        beta = nom_new / torch.where(nom != 0, nom, torch.ones_like(nom))
-        d = z + beta * d
-        nom = nom_new
-        it += 1
-    return x, (it, nom)
+        d = z
+        dot = lambda u, v: torch.sum(u * v, dim=0)
+        nom = dot(r, z)
+        tol2 = torch.clamp(rtol * rtol * nom, min=atol * atol)
+        it = 0
+        while it < maxiter and bool(torch.any(nom > tol2)):
+            Ad = matvec(d)
+            dAd = dot(d, Ad)
+            alpha = nom / torch.where(dAd != 0, dAd, torch.ones_like(dAd))
+            x = x + alpha * d
+            r = r - alpha * Ad
+            z = precond(r)
+            nom_new = dot(r, z)
+            beta = nom_new / torch.where(nom != 0, nom, torch.ones_like(nom))
+            d = z + beta * d
+            nom = nom_new
+            it += 1
+        return x, (it, nom)
 
 
 class CompiledPcg:
@@ -74,7 +77,9 @@ class CompiledPcg:
     `graph_nodes` its node count and `program` the GraphProgram.  On the
     CPU the body runs under a Python loop driven by
     graph_loop.pcg_loop_test's plain version (compile_s 0, graph_nodes
-    0, program None)."""
+    0, program None).  A call is the span "krylov.solve"; on the card it
+    adds the graph's device seconds (GraphProgram.device_seconds) to the
+    timer "krylov.graph"."""
 
     def __init__(self, matvec, b_like, precond=None, rtol=1e-6, atol=1e-12,
                  maxiter=500):
@@ -128,22 +133,26 @@ class CompiledPcg:
         if tuple(b.shape) != self.shape or b.dtype != self.dtype:
             raise ValueError(f"b {b.dtype} {tuple(b.shape)}: compiled for "
                              f"{self.dtype} {self.shape}")
-        self.b.copy_(b)
-        if x0 is None:
-            self.x.zero_()
-        else:
-            self.x.copy_(x0)
-        if self.program is None:
-            self._init()
-            go = self._test(0)
-            while bool(go):
-                self._body()
-                go = self._test(1)
-            return self.x.clone(), (int(self.it), self.nom.clone())
-        self.program.replay()
-        it = int(self.it)                  # the one host read of a solve
-        self.program.count_run(it)
-        return self.x.clone(), (it, self.nom.clone())
+        with span("krylov.solve"):
+            self.b.copy_(b)
+            if x0 is None:
+                self.x.zero_()
+            else:
+                self.x.copy_(x0)
+            if self.program is None:
+                self._init()
+                go = self._test(0)
+                while bool(go):
+                    self._body()
+                    go = self._test(1)
+                return self.x.clone(), (int(self.it), self.nom.clone())
+            self.program.replay()
+            it = int(self.it)              # the one host read of a solve
+            self.program.count_run(it)
+            # the graph has ended: its events' time is ready
+            TimeManager.get_timer("krylov.graph").add(
+                self.program.device_seconds())
+            return self.x.clone(), (it, self.nom.clone())
 
 
 def compile_pcg(matvec, b_like, precond=None, rtol=1e-6, atol=1e-12,

@@ -1,62 +1,89 @@
-"""Named-timer registry and stopwatch (PyTorch).
+"""Named-timer registry, stopwatch and spans (PyTorch).
 
 Counterpart of parelag_tpu/utils/timing.py, a rebuild of the reference
 TimeManager/Timer/Watch (src/utilities/ParELAG_TimeManager.hpp:40-146,
 ParELAG_Watch.hpp:33): a global registry of named accumulating timers
 with RAII scopes and a pretty summary table.  The timer names are the
 setup's stage spans (amge/sequence.py: "coarsen: traces", "coarsen: ext
-pass2 solve", ...).  Card work is made visible by synchronizing (torch
-launches asynchronously) when a timer scope with sync_device closes.
+pass2 solve", ...) and the solve calls' spans (`span`).  Card work is
+made visible by synchronizing (torch launches asynchronously) when a
+timer scope with sync_device closes; "krylov.graph" holds device
+seconds instead, from the CUDA events inside a compiled solve's graph
+(solvers/cg.CompiledPcg).  Counters (`counter`) hold counts that are
+not times.
 """
 
-import os
 import time
 from contextlib import contextmanager
 
 import torch
 
 
-@contextmanager
-def profile_trace(logdir):
-    """Capture a profile around a block (torch.profiler, CPU activity
-    and, with a card, CUDA activity), written as a Chrome trace to
-    logdir/trace.json: the replacement for the reference's compile-time
-    elag_trace per-rank call logs (Trace.hpp:20-40)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    os.makedirs(str(logdir), exist_ok=True)
-    prof.export_chrome_trace(os.path.join(str(logdir), "trace.json"))
+class span:
+    """Time a block under `name`: its host seconds and one to the count of
+    the registry's timer `name` (TimeManager; a name used twice adds up).
+    While a torch.profiler is recording, the block is also a
+    record_function range of that name, on the clock of the trace's CUDA
+    activity; otherwise the span is two clock reads and a flag check.
+    The port's solve calls are spans: "hybrid.transform",
+    "hybrid.reduce", "hybrid.refine" and "hybrid.recover" in
+    HybridHdivL2.solve, "krylov.pcg" around solvers/cg.pcg and
+    "krylov.solve" around a CompiledPcg call."""
+
+    __slots__ = ("name", "t0", "range")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        TimeManager.get_timer(self.name).add(time.perf_counter() - self.t0)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
 
 
-@contextmanager
-def named_scope(name):
-    """Annotate work for the profiler timeline
-    (torch.profiler.record_function)."""
-    with torch.profiler.record_function(name):
-        yield
+def counter(name, n):
+    """Add n to the registry's counter `name` (TimeManager.counters()):
+    "hybrid.h2d_bytes" and "hybrid.d2h_bytes", the bytes a Darcy solve
+    copies to and from the card."""
+    TimeManager._counters[name] = TimeManager._counters.get(name, 0) + n
 
 
 class Watch:
-    """Simple accumulating stopwatch (ParELAG_Watch.hpp:33)."""
+    """Simple accumulating stopwatch (ParELAG_Watch.hpp:33); `count` is
+    the number of intervals it has timed."""
 
     def __init__(self):
         self._elapsed = 0.0
         self._start = None
+        self.count = 0
 
     def start(self):
         self._start = time.perf_counter()
 
     def stop(self):
         if self._start is not None:
-            self._elapsed += time.perf_counter() - self._start
+            self.add(time.perf_counter() - self._start)
             self._start = None
+
+    def add(self, seconds):
+        """One interval of `seconds` timed elsewhere (a span, the card's
+        events)."""
+        self._elapsed += seconds
+        self.count += 1
 
     def reset(self):
         self._elapsed = 0.0
         self._start = None
+        self.count = 0
 
     def elapsed(self):
         if self._start is not None:
@@ -68,6 +95,7 @@ class TimeManager:
     """Global named-timer registry (ParELAG_TimeManager.hpp:40-146)."""
 
     _timers = {}
+    _counters = {}
 
     @classmethod
     def get_timer(cls, name) -> Watch:
@@ -96,21 +124,38 @@ class TimeManager:
         return {name: w.elapsed() for name, w in cls._timers.items()}
 
     @classmethod
+    def totals(cls) -> dict:
+        """{timer name: (seconds, intervals timed)} of every timer."""
+        return {name: (w.elapsed(), w.count)
+                for name, w in cls._timers.items()}
+
+    @classmethod
+    def counters(cls) -> dict:
+        """{counter name: total} of every counter."""
+        return dict(cls._counters)
+
+    @classmethod
     def clear(cls):
         cls._timers.clear()
+        cls._counters.clear()
 
     @classmethod
     def summary(cls) -> str:
-        if not cls._timers:
+        if not cls._timers and not cls._counters:
             return "TimeManager: no timers.\n"
-        width = max(len(n) for n in cls._timers) + 2
-        lines = ["-" * (width + 14),
-                 f"{'Timer':<{width}}{'Elapsed (s)':>12}",
-                 "-" * (width + 14)]
+        width = max(len(n) for n in
+                    (*cls._timers, *cls._counters, "Counter")) + 2
+        rule = "-" * (width + 22)
+        lines = [rule, f"{'Timer':<{width}}{'Elapsed (s)':>12}{'Count':>10}",
+                 rule]
         for name in sorted(cls._timers):
-            lines.append(
-                f"{name:<{width}}{cls._timers[name].elapsed():>12.6f}")
-        lines.append("-" * (width + 14))
+            w = cls._timers[name]
+            lines.append(f"{name:<{width}}{w.elapsed():>12.6f}{w.count:>10}")
+        if cls._counters:
+            lines += [rule, f"{'Counter':<{width}}{'Total':>22}", rule]
+            lines += [f"{name:<{width}}{cls._counters[name]:>22}"
+                      for name in sorted(cls._counters)]
+        lines.append(rule)
         return "\n".join(lines) + "\n"
 
     @classmethod
