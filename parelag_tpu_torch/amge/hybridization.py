@@ -418,7 +418,7 @@ class HybridHdivL2:
         # inner solves
         on_card = device.type != "cpu"
         with span("hybrid.refine"):
-            H64 = Hcsr.astype(np.float64)
+            H64 = Hcsr.astype(np.float64, copy=False)
             x = np.zeros(n)
             total_it = passes = 0
             nrm = np.linalg.norm(gf)
@@ -479,40 +479,64 @@ class HybridHdivL2:
         (Hff, gf, rtol) -> xf or (xf, iterations) on the reduced
         (rescaled) multiplier system — the library's composed named
         solver (ParELAG_HybridizationSolverFactory.cpp:135-141)."""
-        import scipy.sparse.linalg as spla
-        # spans, together the whole call but for the device set-up's
-        # lookup (and build): "hybrid.transform", "hybrid.reduce" (the
-        # free multiplier system), the solver's ("hybrid.refine" and
-        # "krylov.pcg" on the device), "hybrid.recover"
+        # spans, together the whole call but for the reduced system's
+        # lookup and the device set-up's: "hybrid.transform",
+        # "hybrid.reduce" (the essential lift and the free right-hand
+        # side), the solver's ("hybrid.refine" and "krylov.pcg" on the
+        # device), "hybrid.recover"; "hybrid.reduce_build" times the
+        # reduced system's build, once per (rescale, format)
         with span("hybrid.transform"):
             g, ess_data = self.rhs_transform(rhs_u, rhs_p)
         if solver == "auto":
             solver = ("device" if resolve_device(device).type == "cuda"
                       else "amg")
+        fmt = "csc" if inner is None and solver == "direct" else "csr"
+        keep, d, Hff = self._reduced(rescale, fmt)
         with span("hybrid.reduce"):
-            H = self.hybrid_system.copy()
             mu = np.zeros(self.n_mult)
             ess = self.ess_mult
             mu[ess] = ess_data[ess]
-            g = g - H @ (mu * ess)
-            keep = ~ess
+            g = g - self.hybrid_system @ (mu * ess)
             free = bool(keep.any())
             if free:
-                Hff = H[keep][:, keep].tocsc()
                 gf = g[keep]
                 if rescale:
-                    d = self.rescaling[keep]
-                    d = np.where(np.abs(d) > 0, d, 1.0)
-                    Hff = sp.diags(d) @ Hff @ sp.diags(d)
                     gf = d * gf
-                if inner is not None or solver != "direct":
-                    Hff = Hff.tocsr()
         if free:
             xf = self._solve_free(Hff, gf, rtol, solver, inner, device)
         with span("hybrid.recover"):
             if free:
                 mu[keep] = d * xf if rescale else xf
             return self.recover(mu)
+
+    def _reduced(self, rescale, fmt):
+        """(keep, d, Hff) of solve(): the free multipliers, the rescaling
+        on them (None without `rescale`) and the free multiplier system,
+        rescaled with `rescale`, in the solver's format `fmt` ("csc" the
+        direct solve's, as the rescaling leaves it; "csr" every other
+        solver's).  None of it depends on the right-hand side, so it is
+        built on first use, under the span "hybrid.reduce_build", and
+        kept per (rescale, fmt) for as long as hybrid_system is the same
+        object.  Hff is handed to the solvers on every call: it is read
+        only."""
+        cache = getattr(self, "_reduced_cache", None)
+        if cache is None or cache[0] is not self.hybrid_system:
+            cache = self._reduced_cache = (self.hybrid_system, {})
+        key = (bool(rescale), fmt)
+        if key not in cache[1]:
+            with span("hybrid.reduce_build"):
+                keep = ~self.ess_mult
+                d = Hff = None
+                if keep.any():
+                    Hff = self.hybrid_system[keep][:, keep].tocsc()
+                    if rescale:
+                        d = self.rescaling[keep]
+                        d = np.where(np.abs(d) > 0, d, 1.0)
+                        Hff = sp.diags(d) @ Hff @ sp.diags(d)
+                    if fmt == "csr":
+                        Hff = Hff.tocsr()
+                cache[1][key] = (keep, d, Hff)
+        return cache[1][key]
 
     def _solve_free(self, Hff, gf, rtol, solver, inner, device):
         """The free multiplier system's solve by `solver` (solve()'s

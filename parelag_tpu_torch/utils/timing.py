@@ -27,8 +27,9 @@ class span:
     activity; otherwise the span is two clock reads and a flag check.
     The port's solve calls are spans: "hybrid.transform",
     "hybrid.reduce", "hybrid.refine" and "hybrid.recover" in
-    HybridHdivL2.solve, "krylov.pcg" around solvers/cg.pcg and
-    "krylov.solve" around a CompiledPcg call."""
+    HybridHdivL2.solve ("hybrid.reduce_build" once per reduced system
+    it builds), "krylov.pcg" around solvers/cg.pcg and "krylov.solve"
+    around a CompiledPcg call."""
 
     __slots__ = ("name", "t0", "range")
 
