@@ -42,7 +42,6 @@ def main(argv=None):
     device = torch.device(args.device)
     spec = harness.load_spec(args.spec) if args.spec else harness.load_spec()
     cell = harness.resolve(spec, args.workload)
-    family = harness.load_module("families", cell.config["family"])
     reference = harness.load_module("reference", cell.config["family"])
     out = open(args.out, "a") if args.out else None
 
@@ -57,7 +56,7 @@ def main(argv=None):
             out.flush()
 
     t0 = time.perf_counter()
-    fam = family.Family(cell.config, cell.mix, device, harness.Spans(device))
+    fam = harness.make_family(cell, device, harness.Spans(device))
     emit(dict(kind="setup", seconds=time.perf_counter() - t0))
     seeds = [int(s) for s in args.seeds.split(",") if s]
     for seed in seeds:
@@ -92,6 +91,7 @@ def main(argv=None):
         checks = reference.judge(cell.config, samples, device)
         emit(dict(kind="control", seed=seed, dtype=str(dtype),
                   checks=checks, judged=len(samples), solve_s=solve_s))
+    fam.close()
     if out:
         out.close()
     return 0

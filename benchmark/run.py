@@ -7,9 +7,10 @@ The last line of standard output is one JSON object (correct,
 attempted, failed, metrics, device, with --trace 1 also breakdown;
 checks last); the last lines of standard error give each number the
 reference compared beside its limit.  Without a card, with fewer cards
-than the cell asks for, or with jax or the JAX package loaded when the
-window has closed, it prints no result and exits with a code other
-than 0.
+than the cell asks for, with the cell's work on other cards than it asks
+for (harness.cards_used: exit 4), or with jax or the JAX package loaded
+in a process of the cell when the window has closed (exit 3), it prints
+no result and exits with a code other than 0.
 """
 
 import time
@@ -63,8 +64,13 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     clock = lambda: time.clock_gettime(time.CLOCK_BOOTTIME) - started
-    result = harness.run_cell(spec, args.workload, args.seed, args.seconds,
-                              bool(args.trace), device, clock)
+    try:
+        result = harness.run_cell(spec, args.workload, args.seed,
+                                  args.seconds, bool(args.trace), device,
+                                  clock)
+    except harness.CardError as e:
+        print(f"{args.workload}: {e}", file=sys.stderr)
+        return e.code
     bad = harness.forbidden_modules()
     if bad:
         print(f"loaded in the measuring process: {', '.join(bad)}",
